@@ -1,65 +1,73 @@
-"""Cost + feasibility model for adaptive strategy selection.
+"""Feasibility model: how many host-streamed probe chunks a join needs.
 
 The reference dispatches on a single hard-coded row threshold
 (`build_size < RADIX_JOIN_THRESHOLD` = 1e6, hash_join.cpp:576-594) and has
 no capacity planning at all (a too-large probe side simply OOMs the host).
-The TPU replacement has two jobs:
+Here the strategy comes from the data (api.py: the dense-domain rule picks
+"direct", everything else runs "partitioned"), and this module answers the
+question the reference's morsel loop answers implicitly (hash_join.cpp:302,
+:347 — bounded working set regardless of probe length): probe chunks are
+streamed HOST-SIDE (api.py slices the numpy probe array and reruns the
+per-chunk compiled graph), so the device never holds more than
 
-1. STRATEGY (measured, round-3 chained profiling — scripts/
-   profile_roofline.py, profile_flagship.py): the partitioned range table
-   wins every regime head-to-head (docs/RESULTS.md) — small builds via its
-   SMALL mode, large builds by construction — so the adaptive strategy is
-   the constant "partitioned"; vmem/global/merge remain explicit tiers and
-   exactness fallbacks.
+    build planes + sorted table        FIXED_BYTES_PER_BUILD_ROW * nb
+  + one chunk's input planes           8  B/chunk-row
+  + one chunk's transients             TRANSIENT_BYTES_* B/chunk-row
 
-2. FEASIBILITY (this is what the reference's morsel loop does implicitly,
-   hash_join.cpp:302,:347 — bounded working set regardless of probe
-   length): probe chunks are streamed HOST-SIDE (api.py slices the numpy
-   probe array and reruns the per-chunk compiled graph), so the device
-   never holds more than
-
-       build planes + range table   ~32*nb            bytes
-     + one chunk's input planes     8  B/chunk-row
-     + one chunk's transients       ~40 (sort in/out, pad, kernel) B/row
-
-   `choose_plan` sizes the chunk so that total stays inside
-   HBM_BUDGET_BYTES.  Calibration anchors (v5e 16 GiB): a 1e9-probe
-   IN-GRAPH chunked scan (whole probe device-resident, round-3)
-   ResourceExhausted'ed — which is why chunks stream from the host; with
-   the shipped constants 1e9 probes plan 4 chunks of 250M rows (measured
-   on-chip: exact, ~12 GB peak, 2.34 s) and 1e8 materialize stays
-   single-shot (measured 0.78-0.81 s) — docs/RESULTS.md "BASELINE
-   config #3".
+`choose_plan` sizes the chunk so that total stays inside the device's
+budget: `bytes_limit` of `memory_stats()` less HEADROOM_FRACTION.  The
+per-row constants are the temp and output bytes XLA reports for the
+partitioned graphs (`compiled.memory_analysis()`, printed per phase by
+chip_smoke.py at 1e8 rows on an H100), rounded up.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import jax
+
 from flash_hash_join_tpu.utils.config import JoinConfig
 
-# Usable VMEM per TPU core after pipeline buffers (of ~16 MiB physical).
-VMEM_BUDGET_BYTES = 12 * 1024 * 1024
-# HBM working-set budget for a single-chip join (v5e: 16 GiB physical,
-# minus XLA runtime/fragmentation headroom; 14 GiB proved optimistic — a
-# planned-in-budget 1e9 run ResourceExhausted'ed in round 3).
-HBM_BUDGET_BYTES = 12 * 1024**3
+# Share of the device's bytes_limit left to XLA's own scratch, allocator
+# fragmentation and arrays the caller holds beside the join.
+HEADROOM_FRACTION = 0.2
+# The CPU backend reports no memory statistics.  This constant stands in
+# for it so that tests and CPU runs plan deterministically; no device
+# measured it.
+CPU_TEST_BUDGET_BYTES = 16 * 1024**3
 
-# Device bytes per probe row while a chunk is in flight: 8 input-plane
-# bytes plus transient sort in/out copies, padded planes, kernel outputs.
-# Calibrated against round-3 runs: 1e9-count chunks of 250M rows ran at
-# ~12 GB peak (40 B/row transient); 1e8 materialize PROVED single-shot on
-# the chip (0.81 s, round 3) so its transient fits 56 B/row beyond the
-# 8+16 B/row input/output planes.
-TRANSIENT_BYTES_COUNT = 40
-TRANSIENT_BYTES_MATERIALIZE = 56
+# Device bytes per build row: the u32 key/value input planes (16 B) plus
+# the sorted table the partitioned graph builds (keys, row index, values)
+# and the sort's scratch.
+FIXED_BYTES_PER_BUILD_ROW = 48
+# Device bytes per probe row beyond its 8 input-plane bytes while a chunk
+# is in flight.  memory_analysis() temp bytes of the partitioned graphs at
+# db-benchmark J1 1e8 on an H100: count 9-14 B/probe row, materialize
+# 10.3-11.3 B/probe row plus 16 B of output planes (chip_smoke.py j1
+# phase); rounded up.
+TRANSIENT_BYTES_COUNT = 16
+TRANSIENT_BYTES_MATERIALIZE = 32
 
 
 @dataclasses.dataclass(frozen=True)
 class JoinPlan:
-    strategy: str       # "vmem" | "partitioned" | "merge" | "global"
+    strategy: str       # "partitioned"; api.py upgrades dense domains
     gbits: int          # home-group bits for the global-table graph
-    probe_chunks: int   # partitioned tier: probe chunks that fit HBM
+    probe_chunks: int   # probe chunks that fit the device
+
+
+def device_budget_bytes() -> int:
+    """Working-set budget of one join on the default device."""
+    dev = jax.devices()[0]
+    stats = dev.memory_stats()
+    if stats and "bytes_limit" in stats:
+        return int(stats["bytes_limit"] * (1 - HEADROOM_FRACTION))
+    if dev.platform != "cpu":
+        raise RuntimeError(
+            f"{dev.platform} device reports no bytes_limit in memory_stats();"
+            " cannot size the join's working set")
+    return CPU_TEST_BUDGET_BYTES
 
 
 def table_bytes(n_build: int, cfg: JoinConfig) -> tuple[int, int]:
@@ -70,27 +78,24 @@ def table_bytes(n_build: int, cfg: JoinConfig) -> tuple[int, int]:
 
 
 def plan_probe_chunks(n_build: int, n_probe: int, mode: str,
-                      budget_bytes: int = HBM_BUDGET_BYTES) -> int:
-    """Number of probe chunks the partitioned tier must stream in.
+                      budget_bytes: int | None = None) -> int:
+    """Number of probe chunks the join must stream in.
 
     1 means single-shot (the common case).  Chunks stream from the host
-    (api.py), so only the build side, the range table, and ONE chunk are
+    (api.py), so only the build side, its table, and ONE chunk are
     device-resident at a time — any probe length is feasible.
-    Materialize outputs are probe-sized and compacted on device, so its
-    per-row cost includes the output planes.
     """
-    fixed = 16 * n_build + 16 * n_build  # input planes + range table
-    if mode == "materialize":
-        fixed += 8 * n_build  # value planes in the table
-        per_row = 8 + 16 + TRANSIENT_BYTES_MATERIALIZE
-    else:
-        per_row = 8 + TRANSIENT_BYTES_COUNT
+    if budget_bytes is None:
+        budget_bytes = device_budget_bytes()
+    fixed = FIXED_BYTES_PER_BUILD_ROW * n_build
+    per_row = 8 + (TRANSIENT_BYTES_MATERIALIZE if mode == "materialize"
+                   else TRANSIENT_BYTES_COUNT)
     avail = budget_bytes - fixed
     if avail <= 0:
         raise MemoryError(
-            f"build side of {n_build} rows alone exceeds the single-chip "
-            "HBM feasibility budget; shard the build side with "
-            "flash_hash_join_tpu.parallel instead")
+            f"build side of {n_build} rows alone exceeds the single-device "
+            "budget; shard the build side with flash_hash_join_tpu.parallel "
+            "instead")
     chunk_rows = avail // per_row
     if chunk_rows >= n_probe:
         return 1
@@ -103,14 +108,10 @@ def plan_probe_chunks(n_build: int, n_probe: int, mode: str,
 
 def choose_plan(n_build: int, n_probe: int, cfg: JoinConfig,
                 mode: str = "count",
-                budget_bytes: int = HBM_BUDGET_BYTES) -> JoinPlan:
-    """Pick strategy + chunking for a build/probe size pair.
-
-    Strategy is measured-constant "partitioned" (see module docstring);
-    the real decision surface is feasibility: probe_chunks > 1 makes
+                budget_bytes: int | None = None) -> JoinPlan:
+    """Pick chunking for a build/probe size pair.  probe_chunks > 1 makes
     api.py stream probe chunks host-side through the per-chunk compiled
-    graph.
-    """
+    graph."""
     return JoinPlan(
         "partitioned",
         cfg.group_bits(n_build),

@@ -3,7 +3,7 @@
 decompose into").  NOT PRESENT as a public op in the reference; its hash
 table IS the degenerate first-value aggregate.
 
-TPU-native design: same spine as the join build (ops/hash_table.py) —
+Design: same spine as the join build (ops/hash_table.py) —
 hash -> sort rows by (home, key) -> segment boundaries — then exact u64
 segmented reductions (ops/segmented.py) instead of slot placement.  Output
 is padded to the input length (static shapes); `n_groups` rows are valid,

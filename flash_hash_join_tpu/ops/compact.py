@@ -1,39 +1,30 @@
 """Stream compaction of matched rows — shared by every materialize path.
 
-XLA TPU scatter costs ~8.5 ns/row (scripts/microbench.py), so the obvious
-mask -> cumsum-positions -> scatter compaction costs 4 x 8.5 ns/row for a
-4-column output — it dominated large materializes (1e8: ~3.4 s of 4.3 s).
-One stable single-key sort moves all payload columns at once for ~6 ns/row
-total: sort by miss-flag, hits land compacted at the front in their
-original relative order (deterministic).
+Stable exact-offset compaction: an exclusive prefix sum of the mask gives
+each kept row its output slot, and one row scatter moves all payload
+columns at once.  Kept rows land at the front in their original relative
+order (deterministic); the tail is zero.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 
-def compact_by_mask(mask, cols, n_out: int | None = None,
-                    stable: bool = True):
-    """Return (count, cols') with rows where mask is True moved to the
-    front of each column.  Tail rows are unspecified (sorted misses).
-
-    stable=True preserves the rows' relative order (probe-order contracts;
-    XLA implements it with an internal tiebreak column).  stable=False is
-    cheaper and still deterministic — hits land in full-tuple lex order —
-    for paths that promise a sort order anyway (large range materialize).
+def compact_by_mask(mask, cols, n_out: int | None = None):
+    """Return (count, cols') with rows where mask is True moved, in input
+    order, to the front of each column.  Rows past `count` are zero.
 
     cols: uint32 arrays of mask's length; n_out: optional truncation.
     """
-    flag = jnp.where(mask, jnp.uint32(0), jnp.uint32(1))
-    ops = (flag,) + tuple(c.astype(jnp.uint32) for c in cols)
-    if stable:
-        sorted_ops = jax.lax.sort(ops, num_keys=1, is_stable=True)
-    else:
-        sorted_ops = jax.lax.sort(ops, num_keys=len(ops), is_stable=False)
-    count = jnp.sum(mask.astype(jnp.int32))
-    out = sorted_ops[1:]
-    if n_out is not None:
-        out = tuple(c[:n_out] for c in out)
-    return count, out
+    n = mask.shape[0]
+    n_out = n if n_out is None else n_out
+    keep = mask.astype(jnp.int32)
+    slot = jnp.cumsum(keep) - keep
+    # dropped rows (and kept rows past n_out) target slot n_out: out of
+    # bounds, so mode="drop" discards them
+    slot = jnp.where(mask & (slot < n_out), slot, n_out)
+    stacked = jnp.stack([c.astype(jnp.uint32) for c in cols], axis=1)
+    out = jnp.zeros((n_out, len(cols)), jnp.uint32).at[slot].set(
+        stacked, mode="drop")
+    return jnp.sum(keep), tuple(out[:, i] for i in range(len(cols)))

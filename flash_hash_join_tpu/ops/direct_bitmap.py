@@ -1,496 +1,143 @@
-"""Direct-address bitmap count join for dense narrow key domains.
+"""Direct-address joins for dense narrow key domains.
 
-The adaptive tier's answer to the reference's small/medium-build count
-cells (hash_join.cpp:498-534 radix count, :536-567 scalar count) when the
-build keys are dense integers — exactly the db-benchmark J1 Q1/Q2 shape,
-where the build side is a permutation-like id column over [0, ~1.1*nb).
-DuckDB's perfect-hash join exploits the same statistic; here it removes
-BOTH sorts and the hash table: count = |{p : p in domain bitmap}| under
-first-match semantics (each probe row counts at most once, independent of
-build-side duplicates — SURVEY.md §3 semantics contract).
+The adaptive tier's answer to the reference's count and materialize cells
+(hash_join.cpp:498-534 radix count, :536-567 scalar count, :394-444
+materialize) when the build keys are dense integers — exactly the
+db-benchmark J1 shape, where the build side is an id column over
+[0, ~1.1*nb).  DuckDB's perfect-hash join exploits the same statistic:
+with lo = min(build key), key k lives at domain slot k - lo, so the join
+needs neither a sort nor a hash table.
+
+  count       — one scatter builds a bitmap of the occupied slots (packed
+                into u32 words: 2^27 slots are 16 MB), one gather + shift
+                per probe reads it.  First-match semantics: each probe row
+                counts at most once, whatever the build duplicates.
+  materialize — one scatter-min writes each slot's winning build row (the
+                FIRST input occurrence, the rule of every other tier), one
+                gather per probe reads it, and the values come from the
+                build planes at that row.  Output in probe order.
 
 Split of work:
-  host (api.py): detects the dense-domain opportunity from the numpy
-    inputs (max < 2^32, span <= 2^20) and picks the d_rows compile rung.
-  this module (in-graph): computes lo = min(valid build key), packs the
-    domain bitmap, maps probe keys to domain indices, and runs the
-    ops/pallas/bitmap_probe.py scan kernel.
+  host (api.py): `dense_domain_ok` decides from the numpy inputs, and
+    d_rows_for / v_rows_for pick the compile rung for the domain size.
+  this module (in-graph): everything else.
 
 Exactness: build rows that do not fit the declared domain (key hi-word
-!= 0, or lo-relative index >= d_rows*4096 — impossible when api.py sized
-the rung from the true span, possible under the chained-timing key remix)
-are counted into special[3], and the caller's retry ladder reruns on the
+!= 0, or slot >= the rung's size — impossible when api.py sized the rung
+from the true span, possible under the chained-timing key remix) are
+counted into special[3], and the caller's retry ladder reruns on the
 always-exact merge path.  Probe keys outside the domain are provably
 matchless and contribute zero.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
-from flash_hash_join_tpu.ops.pallas import bitmap_probe as bp
-
 LANES = 128
-SENTINEL = jnp.uint32(0xFFFFFFFF)
+BITS_PER_ROW = 32 * LANES   # count rung: one row = 128 u32 bitmap words
+SENTINEL = 0xFFFFFFFF
 
-# Domain cap for the SCAN path: 2^20 slots = 256 bitmap rows = 64 KB
-# VMEM; the row scan at the cap costs ~0.75 cycles/probe — above it the
-# blockwise-sorted windowed path (ops/pallas/dense_bitmap.py) takes over.
-MAX_DOMAIN_BITS = bp.MAX_D_ROWS * bp.BITS_PER_ROW   # 2^20
-MAX_BUILD_ROWS = 1 << 20
-
-# ADAPTIVE crossover for the scan path (measured on v5e, 4e7 probes,
-# scripts/profile_direct.py round 4): the scan cost is linear in d_rows
-# (~0.007 ns/probe-row per bitmap row) — span 2^16: 0.158 ns/row,
-# 2^18: 0.486, 2^20: 1.815 vs the partitioned tier's flat ~1.12-1.27 —
-# so the adaptive tier upgrades to direct only through 128 rows = 2^19
-# slots (predicted ~0.93 ns/row at the cap, still a win).  Explicitly
-# requested strategy="direct" may use the full 2^20 scan cap.
-ADAPTIVE_SCAN_DOMAIN_BITS = 128 * bp.BITS_PER_ROW   # 2^19
-
-# Domain cap for the LARGE path: the bitmap must fit VMEM next to the
-# streaming input tiles — 16384 rows = 2^26 slots = 8 MB.  Covers the
-# 4e7 flagship's 4.4e7-slot universe.  Adaptive-routed (api.py) for
-# spans past the scan band when large_span_ok holds: with the strided
-# block assignment the flagship measures 3.94 ns/probe-row end-to-end
-# (0.158 s steady-state device) vs partitioned 4.37, and the win holds
-# across the band (nb=2.5M..40M at 4e7 probes — api.py crossover
-# table).  An earlier 17.4 ns/row reading was an artifact: the ragged
-# last sort block's low density overflowed the sels window and the
-# retry ladder silently re-ran (and re-timed) the merge path.
-MAX_LARGE_D_ROWS = 16384
-MAX_LARGE_DOMAIN_BITS = MAX_LARGE_D_ROWS * bp.BITS_PER_ROW  # 2^26
-
-# XL band: spans past 2^26 run the same kernel with a 2x sort block
-# (2^21 — keeps each block's per-tile-row span inside the sels=4 window
-# at J1 densities) and a bitmap that grows in 4096-row (2 MB) steps
-# instead of pow2 doubling (32768 rows = 16 MB would not fit VMEM next
-# to the streaming tiles; 28672 = 14 MB compile-checked on v5e).
-# Sized to cover the 1e8 J1 Q5 universe (1.1e8 slots).
-MAX_XL_D_ROWS = 28672
-MAX_XL_DOMAIN_BITS = MAX_XL_D_ROWS * bp.BITS_PER_ROW  # 117,440,512
-XL_SORT_BLOCK = 1 << 21
-XL_STEP_ROWS = 4096
+# The one routing rule (api.py): a build side is DENSE when its keys fit
+# 32 bits and their span is at most DENSE_SLOTS_PER_ROW slots per input
+# row (build + probe), capped at MAX_DOMAIN_SLOTS.  The direct graphs then
+# move O(span) bytes of domain state beside O(rows) of gathers and never
+# sort, which is what chip_smoke.py's J1 phase compares against the
+# partitioned tier on the card.  The cap bounds the materialize row plane
+# (4 bytes per slot) at 4 GiB.
+DENSE_SLOTS_PER_ROW = 4
+MAX_DOMAIN_SLOTS = 1 << 30
 
 
-def d_rows_for(span: int) -> int:
-    """Compile rung: bitmap rows for a key span, pow2 so shapes cache.
-
-    Rungs <= bp.MAX_D_ROWS (256) run the scan kernel; larger rungs run
-    the blockwise-sorted dense_bitmap kernel.  Past MAX_LARGE_D_ROWS the
-    XL rungs step by XL_STEP_ROWS (pow2 doubling would blow VMEM)."""
-    need = -(-max(span, 1) // bp.BITS_PER_ROW)
-    r = 8
-    while r < need and r < MAX_LARGE_D_ROWS:
-        r *= 2
-    if need > r:
-        r = -(-need // XL_STEP_ROWS) * XL_STEP_ROWS
-    return r
+def dense_domain_ok(span: int, nb: int, npr: int) -> bool:
+    """The direct-vs-partitioned rule for a build key span of `span`."""
+    return span <= min(DENSE_SLOTS_PER_ROW * (nb + npr), MAX_DOMAIN_SLOTS)
 
 
-def sort_block_for(d_rows: int, interpret: bool = False) -> int:
-    """The blockwise sort-block size matched to a d_rows rung: XL rungs
-    double the block so the density gate (large_span_ok) keeps holding —
-    per-tile-row span scales with span/rows-per-block, and XL spans are
-    up to 2x the 2^26 cap the 2^20 block was sized for."""
-    if interpret:
-        return 1 << 14
-    return XL_SORT_BLOCK if d_rows > MAX_LARGE_D_ROWS else 1 << 20
-
-
-# --- dense-domain MATERIALIZE ------------------------------------------------
-#
-# Value planes live at SLOT granularity (row = idx>>7, lane = idx&127), so
-# a span of S slots needs v_rows = S/128 plane rows — 32x the bitmap's row
-# count.  Two bands:
-#   scan  (v_rows <= MAT_SCAN_MAX_V_ROWS): unsorted probes, the
-#         bitmap_probe.probe_gather_bitmap scan kernel — covers every J1
-#         Q1 shape (v_rows = 1) and Q2 at 1e7 (88 rows).
-#   staged (v_rows <= MAT_MAX_V_ROWS): ONE-column blockwise probe sort +
-#         dense_values.probe_gather_staged dynamic-row staging — covers
-#         Q2 at 2e7/4e7 and any dense span to 2^20 slots.
-# Both reconstruct the matched probe key as lo + idx (only in-domain
-# probes can hit, and in-domain keys have hi == 0), so nothing but the
-# u32 domain index ever rides the kernel or the sort.  Reference strategy
-# being replaced: count-then-write at exact offsets,
-# /root/reference/hash_join.cpp:394-444.
-MAT_SCAN_MAX_V_ROWS = 128          # tuned: scripts/profile_dense_mat.py
-MAT_MAX_V_ROWS = 8192              # 2^20 slots; 4 MB per u32 value plane
-
-
-def v_rows_for(span: int) -> int:
-    """Compile rung for materialize value planes: pow2 rows of 128 slots."""
-    need = -(-max(span, 1) // LANES)
+def _pow2_rows(need: int) -> int:
     r = 8
     while r < need:
         r *= 2
     return r
 
 
-def mat_span_ok(span: int, npr: int, sels: int = 4,
-                sort_block: int = 1 << 20) -> bool:
-    """Density gate for the staged band: the probe side's mean tile-row
-    span (span * 128 / valid-rows-per-block slots) must fit within HALF
-    the sels-row window of 128-slot value rows (the 32x-finer analog of
-    large_span_ok)."""
-    half_window = (sels // 2) * LANES
-    nblocks = -(-max(npr, 1) // sort_block)
-    per_block = max(npr // max(nblocks, 1), 1)
-    return span * 128 <= half_window * per_block
+def d_rows_for(span: int) -> int:
+    """Count compile rung: bitmap rows of 4096 slots, pow2 so shapes cache."""
+    return _pow2_rows(-(-max(span, 1) // BITS_PER_ROW))
 
 
-# ADAPTIVE perf gates for dense materialize (explicit strategy="direct"
-# bypasses them).  Calibrated on v5e, round 5 (scripts/profile_dense_mat.py,
-# ns/probe-row direct vs the partitioned route with pack compaction):
-#   scan v8:   2e5 7.2/5.8 LOSES (dispatch-bound); 1e6 1.95/2.23 wins;
-#              4e6 0.47/0.74; 8e6-4e7 0.30-0.39/0.60-0.70 — wins from ~1e6
-#   scan v16:  1e6 1.88/1.60 loses marginally — threshold doubles
-#   scan v64:  4e6 0.80/1.40 wins
-#   scan v128: 8e6 1.19/0.99 loses; 1e7 1.10/1.59 wins
-#   staged:    a NEAR-TIE band (v256@2e7 1.91/1.87, v512@4e7 ~1.7/1.81,
-#              both within run noise) — routed from LARGE_MIN_PROBE_ROWS
-#              (3.2e7), where it measured ahead and the per-chunk
-#              build-side plane scatter amortizes
-# The scan cost is linear in v_rows (one gather/select step per value
-# row), so the threshold family grows with v_rows.
-MAT_STAGED_MIN_PROBE_ROWS = 32_000_000
+def v_rows_for(span: int) -> int:
+    """Materialize compile rung: pow2 rows of 128 slots."""
+    return _pow2_rows(-(-max(span, 1) // LANES))
 
 
-def mat_wins(v_rows: int, npr: int) -> bool:
-    """Measured-crossover perf gate: should the ADAPTIVE tier route an
-    eligible dense span through the direct materialize kernels?"""
-    if v_rows <= 8:
-        return npr >= 1_000_000
-    if v_rows <= 64:
-        return npr >= 2_000_000
-    if v_rows <= MAT_SCAN_MAX_V_ROWS:
-        return npr >= 10_000_000
-    return npr >= MAT_STAGED_MIN_PROBE_ROWS
-
-
-def _dense_value_planes(kh, kl, vh, vl, nb_valid, *, v_rows: int,
-                        narrow_values: bool):
-    """Scatter build values into dense planes.  Returns (lo, n_bad,
-    occupied_bits, presence_plane, value_planes tuple).
-
-    Winner on duplicate build keys: MIN build-row index (first input
-    occurrence — the same deterministic rule as the global/vmem/merge
-    tiers, api.py output contract)."""
+def _domain(kh, kl, nb_valid, slots: int):
+    """(lo, build slot or `slots` when out of domain/invalid, n_bad)."""
     n = kh.shape[0]
-    v_slots = v_rows * LANES
     bvalid = jnp.arange(n, dtype=jnp.int32) < nb_valid
-    ok0 = bvalid & (kh == 0)
-    lo = jnp.min(jnp.where(ok0, kl, SENTINEL), initial=SENTINEL)
+    lo = jnp.min(jnp.where(bvalid & (kh == 0), kl, jnp.uint32(SENTINEL)),
+                 initial=jnp.uint32(SENTINEL))
     diff = kl - lo                        # u32; keys < lo wrap to huge
-    bad = bvalid & ((kh != 0) | (diff >= v_slots))
+    bad = bvalid & ((kh != 0) | (diff >= slots))
     n_bad = jnp.sum(bad).astype(jnp.uint32)
-    idx_b = jnp.where(bvalid & ~bad, diff, jnp.uint32(v_slots))
-
-    rowid = jnp.arange(n, dtype=jnp.int32)
-    win = jnp.full((v_slots,), n, jnp.int32).at[idx_b].min(rowid,
-                                                           mode="drop")
-    occ = win < n
-    safe = jnp.clip(win, 0, n - 1)
-    vplanes = ([] if narrow_values
-               else [jnp.where(occ, vh[safe], 0).reshape(v_rows, LANES)])
-    vplanes.append(jnp.where(occ, vl[safe], 0).reshape(v_rows, LANES))
-    presence = occ.astype(jnp.uint32).reshape(v_rows, LANES)
-    return lo, n_bad, occ, presence, tuple(vplanes)
+    return lo, jnp.where(bvalid & ~bad, diff, jnp.uint32(slots)), n_bad
 
 
-def _probe_idx(ph, pl, np_valid, lo, v_slots: int):
+def _probe_slot(ph, pl, np_valid, lo, slots: int):
+    """(probe slot clipped into the domain, in-domain mask)."""
     npr = ph.shape[0]
     pvalid = jnp.arange(npr, dtype=jnp.int32) < np_valid
     pdiff = pl - lo
-    pok = pvalid & (ph == 0) & (pdiff < v_slots)
-    return jnp.where(pok, pdiff, SENTINEL)
+    pok = pvalid & (ph == 0) & (pdiff < slots)
+    return jnp.where(pok, pdiff, 0).astype(jnp.int32), pok
 
 
-def _compact_mat(hit_flat, pks_l, val_flats, npr: int, n_bad, unres,
-                 narrow_values: bool, interpret: bool):
-    from flash_hash_join_tpu.ops.pallas.stream_compact import (
-        compact_by_mask_fast)
-    zeros_n = lambda: jnp.zeros((npr,), jnp.uint32)  # noqa: E731
-    if narrow_values:
-        count, (out_l, out_vl) = compact_by_mask_fast(
-            hit_flat, (pks_l, val_flats[0]), n_out=npr, interpret=interpret)
-        out_vh = zeros_n()
-    else:
-        count, (out_l, out_vh, out_vl) = compact_by_mask_fast(
-            hit_flat, (pks_l, val_flats[0], val_flats[1]), n_out=npr,
-            interpret=interpret)
+def _special(n_bad):
     zero = jnp.uint32(0)
-    special = jnp.stack(
-        [zero, zero, zero, n_bad + unres.astype(jnp.uint32)])
-    return (count.astype(jnp.int32), zeros_n(), out_l, out_vh, out_vl,
-            special)
+    return jnp.stack([zero, zero, zero, n_bad])
 
 
-def direct_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid, np_valid, *,
-                            v_rows: int, narrow_values: bool = False,
-                            block_m: int = 512,
-                            sort_block: int | None = None,
-                            block_rows: int | None = None,
-                            sels: int | None = None,
-                            interpret: bool = False):
-    """In-graph dense-domain materialize.  Returns the engine materialize
-    contract (count, out_kh, out_kl, out_vh, out_vl, special4).
-
-    Output order: ascending domain-index order in the staged band, probe
-    order in the scan band — both deterministic (any fixed order satisfies
-    parity, api.py contract).  special[3] = build rows outside the domain
-    plus window-overflow probes; caller falls back to merge when nonzero.
-    """
-    from flash_hash_join_tpu.ops.pallas import dense_values as dv
-
-    v_slots = v_rows * LANES
-    lo, n_bad, occ, presence, vplanes = _dense_value_planes(
-        kh, kl, vh, vl, nb_valid, v_rows=v_rows,
-        narrow_values=narrow_values)
-    pidx = _probe_idx(ph, pl, np_valid, lo, v_slots)
-    npr = ph.shape[0]
-
-    if v_rows <= MAT_SCAN_MAX_V_ROWS:
-        # scan band: no sort; bitmap scan for hits + value-row scan
-        d_rows = max(8, v_rows // 32)
-        d_bits = d_rows * bp.BITS_PER_ROW
-        occ_pad = jnp.concatenate(
-            [occ, jnp.zeros((d_bits - v_slots,), jnp.bool_)]) \
-            if d_bits > v_slots else occ
-        weights = jnp.uint32(1) << jnp.arange(32, dtype=jnp.uint32)
-        bitmap = jnp.sum(occ_pad.reshape(-1, 32).astype(jnp.uint32)
-                         * weights, axis=1,
-                         dtype=jnp.uint32).reshape(d_rows, LANES)
-        rows = -(-npr // LANES)
-        m = min(block_m, rows)
-        rows_pad = -(-rows // m) * m
-        pad = rows_pad * LANES - npr
-        pidx_p = (jnp.concatenate([pidx, jnp.full((pad,), SENTINEL)])
-                  if pad else pidx)
-        outs = bp.probe_gather_bitmap(
-            bitmap, vplanes, pidx_p.reshape(rows_pad, LANES),
-            d_rows=d_rows, v_rows=v_rows, block_m=m, interpret=interpret)
-        hit = outs[0].reshape(-1)
-        vals = [o.reshape(-1) for o in outs[1:]]
-        pks_l = lo + pidx_p
-        return _compact_mat(hit, pks_l, vals, npr, n_bad, jnp.int32(0),
-                            narrow_values, interpret)
-
-    # staged band: one-column blockwise probe sort + dynamic-row staging
-    if sort_block is None:
-        sort_block = 1 << 14 if interpret else 1 << 20
-    if block_rows is None:
-        block_rows = 128 if interpret else 512
-    if sels is None:
-        sels = 8 if interpret else dv.DEFAULT_SELS
-    psorted = _blockwise_sorted_idx(pidx, sort_block)
-    # XLA-opaque materialization of the sorted array before its consumers
-    # (the rs column slice + the kernel's tile input): without it XLA:TPU
-    # miscompiled the fused [strided transpose -> batched sort] producer
-    # at multi-block shapes (+128 spurious hits at npr=2e7 on v5e) — the
-    # full failure analysis lives on dv.materialize_copy.
-    psorted = dv.materialize_copy(psorted, interpret=interpret)
-    rs = jnp.clip((psorted[:, 0] >> jnp.uint32(7)).astype(jnp.int32),
-                  0, v_rows - sels)
-    rs_all = rs.reshape(-1, 1, block_rows)
-    out = dv.probe_gather_staged(
-        (presence, *vplanes), psorted, rs_all, v_rows=v_rows,
-        block_rows=block_rows, sels=sels, interpret=interpret)
-    mask, keys, vals, unres = out[0], out[1], out[2:-1], out[-1]
-    # keys come from the KERNEL's idx pass-through, not from psorted:
-    # deriving them here would add a third XLA consumer to the sort
-    # result and re-trigger the miscompile documented above.
-    pks_l = lo + keys.reshape(-1)
-    return _compact_mat(mask.reshape(-1), pks_l,
-                        [v.reshape(-1) for v in vals], npr, n_bad, unres,
-                        narrow_values, interpret)
-
-
-def direct_join_count(kh, kl, ph, pl, nb_valid, np_valid, *, d_rows: int,
-                      block_m: int = 512, interpret: bool = False):
+def direct_join_count(kh, kl, ph, pl, nb_valid, np_valid, *, d_rows: int):
     """In-graph dense-domain count.  Returns (count:i32, special4:u32).
 
     kh/kl, ph/pl: u32 hi/lo key planes (utils/u64.py SoA convention).
     special[3] = build rows outside the declared domain (caller must
-    fall back when nonzero).  Dispatches on the d_rows rung: scan kernel
-    up to bp.MAX_D_ROWS, blockwise-sorted dense_bitmap kernel above.
+    fall back when nonzero).
     """
-    if d_rows > bp.MAX_D_ROWS:
-        return direct_join_count_large(kh, kl, ph, pl, nb_valid, np_valid,
-                                       d_rows=d_rows, interpret=interpret)
-    n = kh.shape[0]
-    d_bits = d_rows * bp.BITS_PER_ROW
-
-    bvalid = jnp.arange(n, dtype=jnp.int32) < nb_valid
-    lo = jnp.min(jnp.where(bvalid, kl, SENTINEL), initial=SENTINEL)
-    diff = kl - lo                       # u32; keys < lo wrap to huge
-    bad = bvalid & ((kh != 0) | (diff >= d_bits))
-    n_bad = jnp.sum(bad).astype(jnp.uint32)
-    idx = jnp.where(bvalid & ~bad, diff, jnp.uint32(d_bits))  # OOB -> drop
-
-    bits = jnp.zeros((d_bits,), jnp.bool_).at[idx].set(True, mode="drop")
+    slots = d_rows * BITS_PER_ROW
+    lo, bslot, n_bad = _domain(kh, kl, nb_valid, slots)
+    bits = jnp.zeros((slots,), jnp.bool_).at[bslot].set(True, mode="drop")
     weights = jnp.uint32(1) << jnp.arange(32, dtype=jnp.uint32)
     words = jnp.sum(bits.reshape(-1, 32).astype(jnp.uint32) * weights,
                     axis=1, dtype=jnp.uint32)
-    bitmap = words.reshape(d_rows, LANES)
-
-    npr = ph.shape[0]
-    pvalid = jnp.arange(npr, dtype=jnp.int32) < np_valid
-    pdiff = pl - lo
-    pok = pvalid & (ph == 0) & (pdiff < d_bits)
-    pidx = jnp.where(pok, pdiff, SENTINEL)
-
-    rows = -(-npr // LANES)
-    m = min(block_m, rows)
-    rows_pad = -(-rows // m) * m
-    pad = rows_pad * LANES - npr
-    if pad:
-        pidx = jnp.concatenate([pidx, jnp.full((pad,), SENTINEL)])
-
-    count = bp.probe_count_bitmap(bitmap, pidx.reshape(rows_pad, LANES),
-                                  d_rows=d_rows, block_m=m,
-                                  interpret=interpret)
-    zero = jnp.uint32(0)
-    special = jnp.stack([zero, zero, zero, n_bad])
-    return count.astype(jnp.int32), special
+    pslot, pok = _probe_slot(ph, pl, np_valid, lo, slots)
+    bit = (words[pslot >> 5] >> (pslot & 31).astype(jnp.uint32)) & 1
+    count = jnp.sum(jnp.where(pok, bit, 0), dtype=jnp.int32)
+    return count, _special(n_bad)
 
 
-def _blockwise_sorted_idx(idx, sort_block: int):
-    """Pad with the sentinel to a sort_block multiple and sort each block
-    ascending (independent blocks — measured ~4x cheaper per row than a
-    global sort; the dense_bitmap kernel only needs tile-row locality).
+def direct_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid, np_valid, *,
+                            v_rows: int, narrow_values: bool = False):
+    """In-graph dense-domain materialize.  Returns the engine materialize
+    contract (count, out_kh, out_kl, out_vh, out_vl, special4), matched
+    rows in probe order.  special[3] = build rows outside the domain."""
+    from flash_hash_join_tpu.ops.compact import compact_by_mask
 
-    Elements are assigned to blocks STRIDED (element i -> block
-    i % nblocks) rather than contiguously: a contiguous split leaves the
-    ragged last block mostly sentinel-padded, and its low valid density
-    widens per-tile-row spans past the kernel's sels-row window (measured
-    round 4: 113K unresolved rows on the 4e7 flagship = guaranteed
-    exact-fallback rerun).  Striding spreads both the tail padding and
-    any interior validity sentinels evenly, so every block keeps
-    ~n/nblocks valid rows and the density model in large_span_ok holds
-    block-for-block.  Membership counting is assignment-invariant, so
-    this is free correctness-wise; the cost is one (per, nblocks)
-    transpose (~1 relayout pass)."""
-    n = idx.shape[0]
-    npad = -(-max(n, 1) // sort_block) * sort_block
-    if npad != n:
-        idx = jnp.concatenate(
-            [idx, jnp.full((npad - n,), SENTINEL, jnp.uint32)])
-    nblocks = npad // sort_block
-    if nblocks > 1:
-        blocks = idx.reshape(sort_block, nblocks).T
-    else:
-        blocks = idx.reshape(-1, sort_block)
-    (s,) = jax.lax.sort((blocks,), num_keys=1, is_stable=False, dimension=1)
-    return s.reshape(-1, LANES)
-
-
-def large_span_ok(span: int, nb: int, npr: int, sels: int = 4,
-                  sort_block: int | None = None) -> bool:
-    """Density gate for the large path: each side's mean tile-row span
-    (span * 128 / valid-rows-per-block slots) must fit within HALF the
-    sels-row window, so gamma-128 tail fluctuations stay far from an
-    unresolved overflow (which would cost an exact-fallback rerun).
-    With the strided block assignment every block holds ~n/nblocks valid
-    rows, so the per-block count — not min(n, sort_block) — is the right
-    density denominator."""
-    if sort_block is None:
-        sort_block = sort_block_for(d_rows_for(span))
-    half_window = (sels // 2) * bp.BITS_PER_ROW
-
-    def per_block(ns):
-        nblocks = -(-max(ns, 1) // sort_block)
-        return max(ns // max(nblocks, 1), 1)
-
-    return all(span * 128 <= half_window * per_block(ns)
-               for ns in (nb, npr))
-
-
-# PERF gate for ADAPTIVE routing of the large path (explicit
-# strategy="direct" bypasses it).  Measured on v5e
-# (scripts/profile_crossover.py, round 4, ns/probe-row direct vs
-# partitioned):
-#   npr=1e7: nb=2.5M 3.74/2.59, 5M 4.32/3.05, 10M 6.42/3.21 — loses
-#   npr=2e7: nb=2.5M 2.42/1.72, 10M 3.60/3.03, 20M 4.77/3.25 — loses
-#   npr=4e7: nb=2.5M 1.95/2.41, 10M 2.45/2.77, 40M 3.94/4.37 — WINS
-# The flip between 2e7 and 4e7 tracks the GLOBAL probe sort's log-factor
-# growth (the partitioned tier sorts both sides globally; the direct
-# kernel's blockwise sorts are flat per row), so the gate is a probe-row
-# threshold, conservative toward the partitioned tier because the 2e7
-# losses (up to 47%) are larger than the 4e7 wins (10-19%).  nb > 1.25x
-# npr has no measured win anywhere and stays partitioned.  NOTE the
-# boundary is partly extrapolated: the sweep has no points strictly
-# between nb=npr and nb=1.25*npr and none beyond 4e7 probes; the trend
-# (direct's margin GROWS with npr, shrinks with nb/npr) makes both
-# extensions conservative, and scripts/check_gate_drift.py re-measures
-# the gate on demand (run it after any kernel change).
-LARGE_MIN_PROBE_ROWS = 32_000_000
-
-
-def large_span_wins(nb: int, npr: int) -> bool:
-    """Measured-crossover perf gate: should the ADAPTIVE tier route an
-    eligible dense large span through the direct kernel?"""
-    return npr >= LARGE_MIN_PROBE_ROWS and nb <= npr + npr // 4
-
-
-def direct_join_count_large(kh, kl, ph, pl, nb_valid, np_valid, *,
-                            d_rows: int, sort_block: int | None = None,
-                            block_rows: int | None = None,
-                            sels: int | None = None,
-                            interpret: bool = False):
-    """Large-span dense-domain count via ops/pallas/dense_bitmap.py.
-
-    Blockwise-sorts both sides' lo-relative domain indices, then runs the
-    fused build+probe bitmap kernel.  special[3] = build rows outside the
-    declared domain PLUS unresolved rows on either side (tile-row window
-    overflow under local key-space gaps) — the caller's retry ladder
-    falls back to the always-exact sort route when nonzero.
-    """
-    from flash_hash_join_tpu.ops.pallas import dense_bitmap as dbm
-
-    if sort_block is None:
-        # interpret mode (CPU tests) shrinks the blocks so the per-grid
-        # python emulation stays tractable; locality only loosens — the
-        # wider sels window below compensates.  XL rungs double the block
-        # (sort_block_for) to hold the density gate at 2x the span.
-        sort_block = sort_block_for(d_rows, interpret)
-    if block_rows is None:
-        block_rows = 128 if interpret else 512
-    if sels is None:
-        sels = 8 if interpret else 4
-    if sort_block % (block_rows * LANES):
-        raise ValueError("sort_block must be a multiple of block_rows*128")
-
-    d_bits = d_rows * bp.BITS_PER_ROW
     n = kh.shape[0]
-    bvalid = jnp.arange(n, dtype=jnp.int32) < nb_valid
-    ok0 = bvalid & (kh == 0)
-    lo = jnp.min(jnp.where(ok0, kl, SENTINEL), initial=SENTINEL)
-    diff = kl - lo
-    bad = bvalid & ((kh != 0) | (diff >= d_bits))
-    n_bad = jnp.sum(bad).astype(jnp.uint32)
-    bidx = jnp.where(bvalid & ~bad, diff, SENTINEL)
-
-    npr = ph.shape[0]
-    pvalid = jnp.arange(npr, dtype=jnp.int32) < np_valid
-    pdiff = pl - lo
-    pok = pvalid & (ph == 0) & (pdiff < d_bits)
-    pidx = jnp.where(pok, pdiff, SENTINEL)
-
-    bsorted = _blockwise_sorted_idx(bidx, sort_block)
-    psorted = _blockwise_sorted_idx(pidx, sort_block)
-    nbb = bsorted.shape[0] // block_rows
-    idx_all = jnp.concatenate([bsorted, psorted])
-    rs = jnp.clip((idx_all[:, 0] >> jnp.uint32(12)).astype(jnp.int32),
-                  0, d_rows - sels)
-    rs_all = rs.reshape(-1, 1, block_rows)
-
-    count, unres_b, unres_p = dbm.fused_bitmap_join(
-        idx_all, rs_all, nbb=nbb, d_rows=d_rows, block_rows=block_rows,
-        sels=sels, interpret=interpret)
-    zero = jnp.uint32(0)
-    special = jnp.stack([
-        zero, zero, zero,
-        n_bad + unres_b.astype(jnp.uint32) + unres_p.astype(jnp.uint32)])
-    return count, special
+    slots = v_rows * LANES
+    lo, bslot, n_bad = _domain(kh, kl, nb_valid, slots)
+    rows = jnp.arange(n, dtype=jnp.int32)
+    win = jnp.full((slots,), n, jnp.int32).at[bslot].min(rows, mode="drop")
+    pslot, pok = _probe_slot(ph, pl, np_valid, lo, slots)
+    row = win[pslot]
+    hit = pok & (row < n)
+    row = jnp.minimum(row, n - 1)
+    cols = [pl.astype(jnp.uint32)]
+    if not narrow_values:
+        cols.append(vh[row].astype(jnp.uint32))
+    cols.append(vl[row].astype(jnp.uint32))
+    # matched probe keys have hi == 0 (in-domain), so only lo is compacted
+    count, outs = compact_by_mask(hit, tuple(cols))
+    zeros = jnp.zeros(ph.shape, jnp.uint32)
+    out_vh = zeros if narrow_values else outs[1]
+    return (count, zeros, outs[0], out_vh, outs[-1], _special(n_bad))

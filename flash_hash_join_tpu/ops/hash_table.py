@@ -1,4 +1,4 @@
-"""TPU-native open-addressing hash table: sort-based build, gather-based probe.
+"""Open-addressing hash table: sort-based build, gather-based probe.
 
 Reference semantics being reproduced (SURVEY.md §3 "Semantics contract",
 hash_join.cpp:75-204):
@@ -10,7 +10,7 @@ hash_join.cpp:75-204):
   * full table drops excess keys silently (hash_join.cpp:149) — we drop keys
     whose chain would exceed the overflow margin, and report the drop count.
 
-TPU-native mechanism (none of the reference's mechanics survive):
+Mechanism (none of the reference's mechanics survive):
   * No CAS / atomics (hash_join.cpp:130-151).  Build = hash -> sort rows by
     home bucket (lax.sort) -> canonical linear-probe slots via a cummax scan
     -> ONE conflict-free scatter.  The classic fact that a linear-probing
@@ -18,7 +18,7 @@ TPU-native mechanism (none of the reference's mechanics survive):
     construction exact.
   * No per-slot AoS structs (hash_join.cpp:80-86).  Slots live in bucketized
     SoA rows: group g's 8 slots are one contiguous (2*G,) uint32 row
-    [hi_0..hi_7, lo_0..lo_7] = 64 bytes = one HBM transaction per probe touch.
+    [hi_0..hi_7, lo_0..lo_7] = 64 bytes = two 32-byte memory sectors per probe touch.
   * No scalar probe loop (hash_join.cpp:169-179).  Probe gathers whole groups
     for a chunk of keys at once and resolves matches with masked vector
     compares; rare overflow chains continue in a masked while_loop.
@@ -314,7 +314,7 @@ def probe_count(
     """Count probe keys present in the table (reference count semantics:
     probe multiplicity counts, build multiplicity does not).
 
-    Processes the probe stream in fixed chunks via lax.scan — the TPU analog
+    Processes the probe stream in fixed chunks via lax.scan — the analog
     of the reference's 2048-key morsels (hash_join.cpp:302) — so the gather
     window stays bounded regardless of probe length.
     """

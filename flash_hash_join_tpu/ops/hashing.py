@@ -1,10 +1,10 @@
 """Vectorized hashing of u64 keys held as (hi, lo) uint32 pairs.
 
 The reference hashes with the SSE4.2 CRC32 instruction plus an odd-constant
-multiply (hash_join.cpp:40-44).  TPUs have no CRC32 instruction and parity
-does not require the same hash (inner-join counts are hash-independent), so
+multiply (hash_join.cpp:40-44).  Vector units have no CRC32 instruction
+and parity does not require the same hash (inner-join counts are hash-independent), so
 we use a murmur3-style multiply-xorshift finalizer over the two 32-bit
-halves — pure VPU ops, ~10 instructions per key, full avalanche.
+halves — pure elementwise integer ops, ~10 instructions per key, full avalanche.
 
 All functions take/return jnp.uint32 arrays and are shape-polymorphic.
 """
@@ -49,7 +49,7 @@ def bloom_word(h: jnp.ndarray, k: int) -> jnp.ndarray:
 
     Plays the role of the reference's constexpr 16-bit tag table
     (hash_join.cpp:60-74) but is computed in-register from a secondary mix of
-    the hash instead of a lookup (TPU gathers are the thing we are avoiding).
+    the hash instead of a table lookup.
     """
     g = h * jnp.uint32(_GOLDEN_INT) + jnp.uint32(1)
     word = jnp.zeros_like(h)

@@ -1,9 +1,7 @@
 """Sort-merge join on hash order — the gather-free join strategy.
 
-Measurement-driven design (scripts/profile_components.py on v5e): XLA's TPU
-gather costs ~12ns/row regardless of index locality, while lax.sort streams
-at >100M rows/s.  So for one-shot joins where the build side is a sizable
-fraction of the probe side, it is cheaper to never build a table at all:
+One sort replaces the table: for one-shot joins where the build side is a
+sizable fraction of the probe side, the join needs no table at all:
 
   1. concat build and probe rows, tagged with a side flag,
   2. one lax.sort by (hash, key_hi, key_lo, flag) — build rows sort before
@@ -15,8 +13,7 @@ fraction of the probe side, it is cheaper to never build a table at all:
      <=1 output per probe row, value = first build occurrence).
 
 This has no analog in the reference (its radix path always builds per-
-partition tables, hash_join.cpp:316-381) — on TPU the sort network IS the
-hash table.  Semantics contract (SURVEY.md §3) is identical.
+partition tables, hash_join.cpp:316-381) — here the sort IS the hash table.  Semantics contract (SURVEY.md §3) is identical.
 """
 
 from __future__ import annotations
@@ -54,16 +51,19 @@ def _sorted_runs(kh, kl, vh, vl, ph, pl, nb_valid, np_valid):
         jnp.where(bvalid, jnp.uint32(0), jnp.uint32(2)),
         jnp.where(pvalid, jnp.uint32(1), jnp.uint32(2)),
     ])
+    # input row within its side: the last sort key, so equal-key build
+    # rows keep input order and the run's first build row is the first
+    # input occurrence
     orig = jnp.concatenate([
-        jnp.zeros((nb,), jnp.int32),
+        jnp.arange(nb, dtype=jnp.int32),
         jnp.arange(npr, dtype=jnp.int32),
     ])
 
     h = hash_u64(ch, cl)
     h = jnp.where(flag == 2, jnp.uint32(0xFFFFFFFF), h)
 
-    hs, chs, cls, fs, vhs, vls, origs = jax.lax.sort(
-        (h, ch, cl, flag, cv_h, cv_l, orig), num_keys=4, is_stable=False
+    hs, chs, cls, fs, origs, vhs, vls = jax.lax.sort(
+        (h, ch, cl, flag, orig, cv_h, cv_l), num_keys=5, is_stable=False
     )
 
     newk = jnp.concatenate([

@@ -1,40 +1,16 @@
-"""Pallas TPU kernel: windowed probe of the sorted range table.
+"""Pallas kernel (Triton route): the range table's binary search, fused.
 
-The large-build probe path (reference regime: radix join, hash_join.cpp:
-316-381, 498-534).  The TPU-native replacement for per-partition hash
-tables is a RANGE table (ops/range_table.py): all build rows sorted by a
-tuple of uint32 ORDER WORDS, reshaped into (S, C, 128) blocks where
-lane-column (s, l) holds the C keys ranked [s*128*C + l*C, +C) —
-rank-balanced columns, load factor 1.0, built with zero scatters.
+The partitioned tier (ops/range_table.py) resolves each probe by a lower
+bound over the sorted build key planes.  `range_table.search` writes that
+search in plain jnp, where XLA runs it as a chain of whole-vector gather
+passes; this kernel runs the same code with one program per block of
+BLOCK probes: each program loads its probe tile once, keeps the search
+state in registers through every power-of-two step (each step one gather
+load from the table refs), and writes one int32 per probe — the first
+table row holding the probe's key, or -1.
 
-Two instantiations share this kernel (static `n_words` / `key_ix`):
-  wide   — order words (hash, key_hi, key_lo): hash-ordered, robust to any
-           key distribution (the hash uniformizes both sides).
-  narrow — order word (key_lo,) for 32-bit keys: key-ordered, 1-word
-           compares, half the sort width; key-space skew beyond the window
-           is caught by the unresolved counter (exact fallback).
-
-Probe rows arrive sorted by the same words, tiled (TM, 128).  A tile's
-matches live in a narrow monotone band of table columns; the kernel loads
-a W-super-row window over that band (start row scalar-prefetched per tile;
-Pallas skips re-DMA when consecutive tiles map to the same rows):
-
-  1. column search: per window super-row, an 8-step binary search over the
-     128 boundary lanes (lexicographic over the order words) via per-lane
-     dynamic_gather -> window-local column index, summed across rows;
-  2. column scan: for each of the W*C slot-rows, gather the probe's own
-     column lane and compare key planes (same per-lane-gather primitive as
-     ops/pallas/bucket_probe.py).
-
-Cost per probe ~ (8*W*C + 3*n_words*8*W)/1024 vector ops — ~0.6 at the
-default C=32, W=2 — vs ~7-12 ns/row for an XLA HBM gather
-(scripts/microbench.py, value-fetch timed).
-
-Exactness: a probe lexicographically >= the window's end boundary may have
-matches beyond the window (duplicate/tie runs can inflate ranks past any
-static W); such probes are COUNTED as unresolved and the engine falls back
-to the always-exact merge strategy — the same special[3] protocol as
-bucket-table overflow (api.py).
+tests/test_range_table.py checks it against the plain search in
+interpret mode.
 """
 
 from __future__ import annotations
@@ -44,358 +20,41 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-EMPTY32_INT = 0xFFFFFFFF
-LANES = 128
-DEFAULT_C = 32
-DEFAULT_TILE_M = 32
+from flash_hash_join_tpu.ops import range_table as rt
 
-# (n_words, key_ix): which probe word planes exist and which of them are
-# key planes (compared against table key planes during the scan).
-WIDE = (3, (1, 2))      # words (h, kh, kl); keys = (kh, kl)
-NARROW = (1, (0,))      # words (kl,);       keys = (kl,)
-KEYORDER = (2, (0, 1))  # words (kh, kl);    keys = (kh, kl) — no hash
+BLOCK = 1024
 
 
-def _lex_le(bnd_words, probe_words):
-    """boundary <= probe, lexicographic over uint32 word tuples."""
-    le = None
-    eq_prefix = None
-    for i, (b, p) in enumerate(zip(bnd_words, probe_words)):
-        last = i == len(bnd_words) - 1
-        cmp_i = (b <= p) if last else (b < p)
-        term = cmp_i if eq_prefix is None else (eq_prefix & cmp_i)
-        le = term if le is None else (le | term)
-        if not last:
-            eq_i = b == p
-            eq_prefix = eq_i if eq_prefix is None else (eq_prefix & eq_i)
-    return le
+def _search_kernel(n_words: int, *refs):
+    # indexing a table ref with the position vector is a gather load, so
+    # the plain search runs unchanged on the refs
+    probe = tuple(r[...] for r in refs[n_words:2 * n_words])
+    refs[2 * n_words][...] = rt.search(refs[:n_words], probe)
 
 
-def _gather_lanes(row_tile, idx):
-    """y[i,j] = row_tile[i, idx[i,j]] — per-lane dynamic gather."""
-    return jnp.take_along_axis(row_tile, idx, axis=1)
-
-
-def _row_search(bnd_rows, probe_words):
-    """Per-probe count of one super-row's boundary lanes lex-<= probe.
-
-    bnd_rows: tuple of (1, 128) sorted boundary word rows; probe_words:
-    tuple of (TM, 128) tiles.  Returns int32 insertion points in [0, 128]
-    via an 8-step binary search (steps sum to 128; `at` stays in range).
-    """
-    shape = probe_words[0].shape
-    cnt = jnp.zeros(shape, jnp.int32)
-    bts = [jnp.broadcast_to(b, shape) for b in bnd_rows]
-    for step in (64, 32, 16, 8, 4, 2, 1, 1):
-        trial = cnt + step
-        at = trial - 1  # in [0, 127]
-        gathered = tuple(_gather_lanes(bt, at) for bt in bts)
-        ok = _lex_le(gathered, probe_words)
-        cnt = jnp.where(ok, trial, cnt)
-    return cnt
-
-
-def _layout(refs, W, n_words, n_keys, n_values, use_tags=False):
-    """Split the flat kernel ref list into named groups."""
-    nb = W + 1
-    bnds = [refs[i * nb : (i + 1) * nb] for i in range(n_words)]
-    base = n_words * nb
-    tks = [refs[base + i * W : base + (i + 1) * W] for i in range(n_keys)]
-    base += n_keys * W
-    tvs = None
-    if n_values:
-        tvs = [refs[base + i * W : base + (i + 1) * W]
-               for i in range(n_values)]
-        base += n_values * W
-    tags = None
-    if use_tags:
-        tags = refs[base : base + W]
-        base += W
-    probes = refs[base : base + n_words]
-    rest = refs[base + n_words :]
-    return bnds, tks, tvs, tags, probes, rest
-
-
-def _search(W, bnds, probe_words, key_words):
-    """Window-local column index + unresolved mask for a probe tile."""
-    shape = probe_words[0].shape
-    empty = jnp.uint32(EMPTY32_INT)
-    probe_is_empty = None
-    for kw in key_words:
-        e = kw == empty
-        probe_is_empty = e if probe_is_empty is None else (probe_is_empty & e)
-
-    col = jnp.full(shape, -1, jnp.int32)
-    for w in range(W):
-        rows = tuple(b[w][:][0] for b in bnds)  # (1, 128) each
-        col += _row_search(rows, probe_words)
-
-    endb = tuple(jnp.broadcast_to(b[W][0, 0, 0], shape) for b in bnds)
-    unresolved = _lex_le(endb, probe_words) & ~probe_is_empty
-    return col, unresolved
-
-
-def _tag_maybes(W, C, col, tags, probe_words, key_ix):
-    """Per-window bloom-tag pre-check (VERDICT r3 item 6, measured A/B).
-
-    tags[w] is a (1, 1, 128) row of u32 words, each the OR of the 32-bin
-    tag bits (top 5 hash bits) of that lane-column's C keys (range_table
-    `build_range_table(with_tags=True)`).  A probe whose tag bit is absent
-    from its column's word cannot match there — no false negatives — so a
-    window row where NO active probe passes can skip its C-row scan
-    entirely (tile-consensus skip, the only skip a lockstep vector unit
-    can take).  Reference bloom placement: hash_join.cpp:165,183-189.
-    """
-    from flash_hash_join_tpu.ops.hashing import hash_u64
-
-    shape = probe_words[0].shape
-    if len(key_ix) == 1:        # narrow: hash not carried — recompute
-        h = hash_u64(jnp.zeros(shape, jnp.uint32), probe_words[0])
-    else:                       # wide: word 0 IS the hash
-        h = probe_words[0]
-    bit = jnp.uint32(1) << (h >> jnp.uint32(27))
-    maybes = []
-    for w in range(W):
-        lane = col - w * LANES
-        active = (lane >= 0) & (lane < LANES)
-        lane_c = jnp.clip(lane, 0, LANES - 1)
-        tw = _gather_lanes(jnp.broadcast_to(tags[w][:][0], shape), lane_c)
-        maybes.append(((tw & bit) != 0) & active)
-    return maybes
-
-
-SCAN_UNROLL = 8  # slot-rows per fori step — see _scan_hits
-
-
-def _scan_hits(W, C, col, tks, tvs, key_words, maybes=None):
-    """Scan the window's W*C slot-rows; returns (hit[, vh, vl]).
-
-    w stays a python loop (it indexes distinct window refs); c runs as a
-    fori_loop whose body unrolls SCAN_UNROLL slot-rows.  Fully unrolling
-    makes Mosaic stack-allocate every iteration's temporaries (VMEM OOM as
-    W*C grows); a plain per-row fori pays ~100 cycles/iteration of loop
-    overhead (measured: +40% kernel time at W*C=96).  Chunked unrolling
-    bounds the stack at SCAN_UNROLL iterations while amortizing the
-    overhead 8x.  Carries are uint32 — i1 vector carries fail to legalize.
-    """
-    shape = key_words[0].shape
-    empty = jnp.uint32(EMPTY32_INT)
-    n_values = len(tvs) if tvs is not None else 0
-    hit = jnp.zeros(shape, jnp.uint32)
-    vs = [jnp.zeros(shape, jnp.uint32) for _ in range(n_values)]
-    unroll = SCAN_UNROLL if C % SCAN_UNROLL == 0 else 1
-    for w in range(W):
-        lane = col - w * LANES
-        active = (lane >= 0) & (lane < LANES)
-        lane_c = jnp.clip(lane, 0, LANES - 1)
-
-        def step(hit, vs, c, w=w, active=active, lane_c=lane_c):
-            gk = [
-                _gather_lanes(
-                    jnp.broadcast_to(t[w][0, pl.ds(c, 1), :], shape), lane_c)
-                for t in tks
-            ]
-            diff = None
-            is_empty = None
-            for g, kw in zip(gk, key_words):
-                d = g ^ kw
-                diff = d if diff is None else (diff | d)
-                e = g == empty
-                is_empty = e if is_empty is None else (is_empty & e)
-            new_hit = (diff == jnp.uint32(0)) & ~is_empty & active
-            if n_values:
-                new_hit = new_hit & (hit == 0)  # first slot wins
-                for i in range(n_values):
-                    gv = _gather_lanes(
-                        jnp.broadcast_to(tvs[i][w][0, pl.ds(c, 1), :],
-                                         shape), lane_c)
-                    vs[i] = jnp.where(new_hit, gv, vs[i])
-            return hit | new_hit.astype(jnp.uint32), vs
-
-        def body(b, carry, step=step):
-            hit, *vs = carry
-            for j in range(unroll):
-                hit, vs = step(hit, list(vs), b * unroll + j)
-            return (hit, *vs)
-
-        def run_scan(hit=hit, vs=vs, body=body):
-            return jax.lax.fori_loop(0, C // unroll, body, (hit, *vs))
-
-        if maybes is None:
-            out = run_scan()
-        else:
-            # tile-consensus skip: when NO active probe's tag bit is
-            # present in its column word, this window row cannot produce
-            # a hit — skip all C slot-rows (bloom has no false negatives)
-            any_maybe = jnp.sum(maybes[w].astype(jnp.int32)) > 0
-            out = jax.lax.cond(any_maybe, run_scan,
-                               lambda hit=hit, vs=vs: (hit, *vs))
-        hit, vs = out[0], list(out[1:])
-    hit = hit.astype(jnp.bool_)
-    if not n_values:
-        return hit, None, None
-    if n_values == 1:  # narrow values: hi plane is identically zero
-        return hit, jnp.zeros(shape, jnp.uint32), vs[0]
-    return hit, vs[0], vs[1]
-
-
-def _stat_tile(a, b):
-    """(8,128) int32 tile carrying two scalars at lanes 0 and 1."""
-    r_ = jax.lax.broadcasted_iota(jnp.int32, (8, LANES), 0)
-    c_ = jax.lax.broadcasted_iota(jnp.int32, (8, LANES), 1)
-    return jnp.where((r_ == 0) & (c_ == 0), a,
-                     jnp.where((r_ == 0) & (c_ == 1), b, 0))
-
-
-def _count_kernel(W, C, n_words, key_ix, use_tags, wstart_ref, *refs):
-    bnds, tks, _, tags, probes, rest = _layout(refs, W, n_words,
-                                               len(key_ix), n_values=0,
-                                               use_tags=use_tags)
-    (out_ref,) = rest
-    probe_words = tuple(p[:] for p in probes)
-    key_words = tuple(probe_words[i] for i in key_ix)
-    col, unresolved = _search(W, bnds, probe_words, key_words)
-    maybes = (_tag_maybes(W, C, col, tags, probe_words, key_ix)
-              if use_tags else None)
-    hit, _, _ = _scan_hits(W, C, col, tks, None, key_words, maybes)
-    out_ref[:] = _stat_tile(jnp.sum(hit.astype(jnp.int32)),
-                            jnp.sum(unresolved.astype(jnp.int32)))
-
-
-def _materialize_kernel(W, C, n_words, key_ix, n_values, use_tags,
-                        wstart_ref, *refs):
-    bnds, tks, tvs, tags, probes, rest = _layout(refs, W, n_words,
-                                                 len(key_ix),
-                                                 n_values=n_values,
-                                                 use_tags=use_tags)
-    hit_ref, vh_ref, vl_ref, unres_ref = rest
-    probe_words = tuple(p[:] for p in probes)
-    key_words = tuple(probe_words[i] for i in key_ix)
-    col, unresolved = _search(W, bnds, probe_words, key_words)
-    maybes = (_tag_maybes(W, C, col, tags, probe_words, key_ix)
-              if use_tags else None)
-    hit, vh, vl = _scan_hits(W, C, col, tks, tvs, key_words, maybes)
-    hit_ref[:] = hit.astype(jnp.uint32)
-    vh_ref[:] = vh
-    vl_ref[:] = vl
-    unres_ref[:] = _stat_tile(jnp.sum(unresolved.astype(jnp.int32)),
-                              jnp.int32(0))
-
-
-def _in_specs(W, C, TM, n_words, n_keys, n_values, use_tags=False):
-    def bnd_spec(w):
-        # boundary arrays are (S+1, 1, 128); block (1, 1, 128) satisfies
-        # Mosaic's trailing-dims rule (middle dim equals the array's).
-        return pl.BlockSpec((1, 1, LANES),
-                            lambda t, ws, w=w: (ws[t] + w, 0, 0),
-                            memory_space=pltpu.VMEM)
-
-    def tab_spec(w):
-        return pl.BlockSpec((1, C, LANES),
-                            lambda t, ws, w=w: (ws[t] + w, 0, 0),
-                            memory_space=pltpu.VMEM)
-
-    probe_spec = pl.BlockSpec((TM, LANES), lambda t, ws: (t, 0),
-                              memory_space=pltpu.VMEM)
-    specs = []
-    for _ in range(n_words):
-        specs += [bnd_spec(w) for w in range(W + 1)]
-    for _ in range(n_keys + n_values):
-        specs += [tab_spec(w) for w in range(W)]
-    if use_tags:
-        specs += [bnd_spec(w) for w in range(W)]  # tags: (S, 1, 128)
-    specs += [probe_spec] * n_words
-    return specs
-
-
-def _operands(bnds, tks, tvs, probes, W, tags=None):
-    ops = []
-    for b in bnds:
-        ops += [b] * (W + 1)
-    for t in tks:
-        ops += [t] * W
-    for t in tvs or ():
-        ops += [t] * W
-    if tags is not None:
-        ops += [tags] * W
-    ops += list(probes)
-    return ops
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("W", "C", "tile_m", "layout", "interpret"))
-def range_probe_count(bnds, tks, probes, wstart, *,
-                      W: int, C: int = DEFAULT_C,
-                      tile_m: int = DEFAULT_TILE_M,
-                      layout=WIDE, interpret: bool = False,
-                      tags=None):
-    """Count matches of sorted probe tiles against the range table.
-
-    bnds: tuple of (S+1, 1, 128) boundary word arrays (one per order word,
-    row S = MAX sentinel); tks: tuple of (S, C, 128) table key planes;
-    probes: tuple of (ntiles*tile_m, 128) sorted probe word planes;
-    wstart: (ntiles,) int32 window start per tile, pre-clipped to [0, S-W].
-    tags: optional (S, 1, 128) bloom-tag plane (see _tag_maybes).
-    Returns (count, n_unresolved) int32 scalars.
-    """
-    n_words, key_ix = layout
-    use_tags = tags is not None
-    TM = tile_m
-    ntiles = probes[0].shape[0] // TM
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(ntiles,),
-        in_specs=_in_specs(W, C, TM, n_words, len(key_ix), n_values=0,
-                           use_tags=use_tags),
-        out_specs=pl.BlockSpec((8, LANES), lambda t, ws: (t, 0),
-                               memory_space=pltpu.VMEM),
-    )
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def search(table_keys, probe_keys, *, interpret: bool = False):
+    """Same contract as ops/range_table.search: first table row equal to
+    each probe key (int32), -1 when absent."""
+    n_table = table_keys[0].shape[0]
+    m = probe_keys[0].shape[0]
+    if n_table == 0:
+        return jnp.full((m,), -1, jnp.int32)
+    n_words = len(table_keys)
+    mpad = -(-max(m, 1) // BLOCK) * BLOCK
+    probe = tuple(jnp.pad(p, (0, mpad - m)) for p in probe_keys)
+    tile = pl.BlockSpec((BLOCK,), lambda i: (i,))
+    whole = pl.BlockSpec(memory_space=pl.ANY)
     out = pl.pallas_call(
-        functools.partial(_count_kernel, W, C, n_words, key_ix, use_tags),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((ntiles * 8, LANES), jnp.int32),
+        functools.partial(_search_kernel, n_words),
+        grid=(mpad // BLOCK,),
+        in_specs=[whole] * n_words + [tile] * n_words,
+        out_specs=tile,
+        out_shape=jax.ShapeDtypeStruct((mpad,), jnp.int32),
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(wstart, *_operands(bnds, tks, None, probes, W, tags))
-    return jnp.sum(out[::8, 0]), jnp.sum(out[::8, 1])
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("W", "C", "tile_m", "layout", "interpret"))
-def range_probe_materialize(bnds, tks, tvs, probes, wstart, *,
-                            W: int, C: int = DEFAULT_C,
-                            tile_m: int = DEFAULT_TILE_M,
-                            layout=WIDE, interpret: bool = False,
-                            tags=None):
-    """Materializing variant: (hit, vh, vl, n_unresolved); hit/vh/vl are
-    shaped like the probe blocks (probe-sorted order).  tvs holds 1 value
-    plane (narrow values: hi is identically zero) or 2."""
-    n_words, key_ix = layout
-    n_values = len(tvs)
-    use_tags = tags is not None
-    TM = tile_m
-    ntiles = probes[0].shape[0] // TM
-    probe_out = pl.BlockSpec((TM, LANES), lambda t, ws: (t, 0),
-                             memory_space=pltpu.VMEM)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(ntiles,),
-        in_specs=_in_specs(W, C, TM, n_words, len(key_ix),
-                           n_values=n_values, use_tags=use_tags),
-        out_specs=(probe_out, probe_out, probe_out,
-                   pl.BlockSpec((8, LANES), lambda t, ws: (t, 0),
-                                memory_space=pltpu.VMEM)),
-    )
-    shape = jax.ShapeDtypeStruct(probes[0].shape, jnp.uint32)
-    hit, vh, vl, unres = pl.pallas_call(
-        functools.partial(_materialize_kernel, W, C, n_words, key_ix,
-                          n_values, use_tags),
-        grid_spec=grid_spec,
-        out_shape=(shape, shape, shape,
-                   jax.ShapeDtypeStruct((ntiles * 8, LANES), jnp.int32)),
-        interpret=interpret,
-    )(wstart, *_operands(bnds, tks, tvs, probes, W, tags))
-    return hit, vh, vl, jnp.sum(unres[::8, 0])
+        name="range_search",
+    )(*table_keys, *probe)
+    return out[:m]

@@ -1,695 +1,188 @@
-"""Range table: the TPU-native large-build join ("radix"/partitioned tier).
+"""Range table: the partitioned ("radix") tier.
 
 Reference regime being replaced: the radix join (hash_join.cpp:209-292
 partitioners + :316-381/:498-534 per-partition tables).  The reference
-radix-partitions both sides so each sub-join fits in cache; the TPU-native
-equivalent keeps the same role — bound the random-access working set to
-fast memory — but replaces every mechanism:
+radix-partitions both sides so each sub-join fits in cache; here one sort
+of the build side does the same job and its sorted key planes ARE the
+table:
 
-  * partitioning = ONE lax.sort per side (TPU's native multi-pass device
-    sort; measured ~3-5 ns/row) — no histograms, no scatter passes (XLA
-    TPU scatter measured ~8.5 ns/row, a non-starter);
-  * the per-partition hash table = nothing at all: the sorted build array
-    reshaped (S, 128, C) -> transposed (S, C, 128) IS the table — 128
-    rank-balanced lane-columns of C keys per super-row, load factor 1.0;
-  * partition lookup = binary search over column boundaries — see
-    ops/pallas/range_probe.py for the kernel;
-  * exactness under adversarial duplicate/tie runs = unresolved-probe
-    counter -> engine falls back to the merge strategy (special[3]).
+  * build = ONE lax.sort of (key words, build row) with the values riding
+    along as payload;
+  * probe = a branchless binary search (lower bound) per probe row over the
+    sorted key planes, then one compare and (materialize) one value gather
+    at the position found.  On a CUDA device the search runs as one fused
+    Pallas Triton kernel (ops/pallas/range_probe.py), elsewhere as plain
+    jnp (`search`); both give identical results.  Probes stay in input
+    order and are never sorted.  No window, no buckets: every probe
+    resolves exactly, so the unresolved counter special[3] is always 0.
 
-Order variants:
-  wide   — sort by (hash, key_hi, key_lo): hashing uniformizes both sides'
-           sort orders, so probe-tile windows stay narrow for ANY key
-           distribution.  Default.
-  narrow — 32-bit keys (key_hi all zero, detected by the caller): sort by
-           (key_lo,) alone — no hashing, 1-word boundaries, half the sort
-           width.  Key-space density mismatch between sides can widen
-           windows; the unresolved counter keeps it exact.
-  keyorder — 64-bit keys sorted by (key_hi, key_lo) without the hash
-           column: one sort column fewer per side than wide.  Same
-           density-mismatch caveat as narrow; the engine retries with the
-           hash-ordered wide layout on unresolved before falling back to
-           merge (api.py retry ladder).
+Key widths:
+  wide   — 64-bit keys as (key_hi, key_lo) u32 planes, compared
+           lexicographically.
+  narrow — 32-bit keys (key_hi all zero, checked by the caller): the table
+           and the search use the lo word alone, half the gathers.
 
-Semantics contract (SURVEY.md §3): inner first-match join; duplicate build
-keys stay in the table (any one matches; the probe takes the first slot of
-its column — deterministic for a fixed input); the maximum key (u64 max,
-or u32 max in narrow mode) rides the `special` side channel exactly like
-ops/hash_table.py.
+Semantics contract (SURVEY.md §3): inner first-match join.  Duplicate
+build keys sort by build row, so the lower bound lands on the FIRST input
+occurrence — the same winner as the global, merge and direct tiers and
+the C++ oracle.  The maximum key (u64 max, or u32 max in narrow mode) is
+the sort sentinel of invalid rows, so it rides the `special` side channel
+exactly like ops/hash_table.py.
 """
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import jax
-import numpy as np
 import jax.numpy as jnp
-
-from flash_hash_join_tpu.ops.hashing import hash_u64
-from flash_hash_join_tpu.ops.pallas import range_probe as rp
+import numpy as np
 
 EMPTY32 = np.uint32(0xFFFFFFFF)  # numpy: importing this module must not init the XLA backend
-#           (jax.distributed.initialize ordering, scripts/multihost_worker.py)
-LANES = 128
-
-
-# Builds whose table spans <= this many super-rows run in SMALL mode: the
-# window is the whole table, so the probe side needs NO sort (and the join
-# is exact unconditionally — no window to overflow).  4 super-rows = 16K
-# keys at C=32; scan cost 4*C/128 = 1 vector op per probe.
-SMALL_S_CAP = 4
-SMALL_BUILD_ROWS = LANES * 32 * SMALL_S_CAP  # 16384, at the small-mode C
-
-# Round-3 kernel sweep (scripts/profile_flagship.py --only sweep, v5e):
-# per-probe cost ~ W*(C + 8*n_words) and W scales with C^-1 for a fixed
-# probe span, so small C wins on large builds — C=8/W=6 measured 0.53
-# ns/row vs 0.91 for C=32/W=3.  Small builds keep C=32 so SMALL mode
-# (window == table, no probe sort) covers builds up to 16K rows.
-LARGE_C = 8
-
-# Structural kernel cap on the window: operand count and scan unrolling in
-# ops/pallas/range_probe.py scale linearly with W, so a widened retry
-# (w_mult) must re-cap here or risk a Mosaic/VMEM compile failure instead
-# of a clean fall-through to the next ladder rung.
-MAX_W = 64
-
-# BLOCKWISE probe mode (mid-size builds): sorting probes within 64K-element
-# blocks costs 0.41 ns/row vs 1.63 for the global sort (docs/DESIGN.md).
-# A tile of a block-sorted FULL block spans ~tile/BLOCK_M of the keyspace,
-# so the window must cover ~S*tile/BLOCK_M (+2 straddle) super-rows.  The
-# ragged tail (< BLOCK_M probes, plus any host-chunk validity tail) is NOT
-# sorted at all — it runs a second kernel pass with the window = the whole
-# table (SMALL mode's trick: exact unconditionally), which is why the gate
-# requires S <= BLOCKWISE_MAX_S (tail W = S must stay under MAX_W and its
-# whole-table scan must stay cheap).  At C=8/TM=32 this covers builds of
-# 16K..63K rows: exactly the band where SMALL mode has run out and the
-# global probe sort dominated (J1 Q2 shapes).
-BLOCK_M = 1 << 16
-BLOCKWISE_MAX_S = 62
-
-
-def n_super_rows(n: int, C: int) -> int:
-    return max(1, -(-n // (LANES * C)))
-
-
-def blockwise_window(S: int, tile_m: int) -> int:
-    return -(-S * tile_m * LANES // BLOCK_M) + 2
-
-
-def blockwise_ok(n_build: int, n_probe: int, C: int, tile_m: int,
-                 full_valid: bool = True) -> bool:
-    """Gate for the BLOCKWISE probe mode.
-
-    Requires: the table small enough that the unsorted tail can run a
-    whole-table window (S <= BLOCKWISE_MAX_S); probe tiles that never
-    straddle two independently-sorted blocks (tile | BLOCK_M — a
-    straddling tile's below-window probes would be silently dropped, not
-    counted unresolved); enough probes to amortize; and NO validity tail
-    (full_valid) — invalid rows mask to the MAX sentinel BEFORE the block
-    sort, so a validity boundary mid-block compresses that block's valid
-    probes into window-overflowing tiles (exactness survives via the
-    unresolved fallback, but the mode would lose its point).
-    """
-    S = n_super_rows(n_build, C)
-    tile = tile_m * LANES
-    return (full_valid and S <= BLOCKWISE_MAX_S
-            and BLOCK_M % tile == 0 and n_probe >= 2 * BLOCK_M)
-
-
-def default_C(n_build: int) -> int:
-    return 32 if max(n_build, 1) <= SMALL_BUILD_ROWS else LARGE_C
-
-
-# SMALL-mode probe tile: the window is the whole (tiny) table for every
-# tile, so unlike the large path there is no W-grows-with-TM penalty —
-# and the per-tile fixed overhead (grid step, DMA semaphores) dominates
-# trivial-build joins at TM=32 (measured 2.0 ns/row on a 10-row build at
-# 1e7 probes, ~20x the scan cost).  Larger tiles amortize it.
-SMALL_TILE_M = 256
-
-
-def default_tile_m(small: bool, tile_m: int) -> int:
-    return SMALL_TILE_M if (small and tile_m == rp.DEFAULT_TILE_M) \
-        else tile_m
-
-
-def small_mode(n_build: int, C: int = rp.DEFAULT_C) -> bool:
-    return -(-max(n_build, 1) // (LANES * C)) <= SMALL_S_CAP  # n_super_rows
-
-
-def plan_window(n_build: int, n_probe: int, *, C: int = rp.DEFAULT_C,
-                tile_m: int = rp.DEFAULT_TILE_M) -> int:
-    """Static window size W (super-rows) for a shape pair.
-
-    A tile of tile_m*128 sorted probes spans ~tile_m*128 * nb/np build
-    ranks when both sides' sort orders have matching density; one super-row
-    covers 128*C ranks.  +1 covers straddle; floor 2 covers jitter.  Rank
-    inflation beyond W (duplicate runs, key-space skew in narrow mode) is
-    caught by the unresolved counter.
-    """
-    S = n_super_rows(n_build, C)
-    if S <= SMALL_S_CAP:
-        return S  # small mode: the window IS the table
-    span = (tile_m * LANES * n_build) / max(n_probe, 1)
-    W = int(span // (LANES * C)) + 2
-    return min(max(2, W), S, MAX_W)  # never exceed the table's S super-rows
 
 
 class RangeTable(NamedTuple):
-    """Sorted build side in probe-kernel layout (device arrays).
+    """Sorted build side (device arrays).
 
-    tks: tuple of (S, C, 128) table key planes ((kh, kl) wide, (kl,)
-    narrow); tvs: (vh, vl) value planes or None; bnds: tuple of
-    (S+1, 1, 128) boundary word arrays (one per order word, row S = MAX);
-    special: (4,) uint32 [has_max_key, max_val_hi, max_val_lo, reserved].
+    keys: sorted key planes, (kh, kl) wide or (kl,) narrow, each (n,);
+    invalid and maximum-key rows hold the all-ones sentinel and sort last.
+    values: sorted value planes, (vh, vl) or (vl,) under narrow values, or
+    None for count.  special: (4,) uint32 [has_max_key, max_val_hi,
+    max_val_lo, unresolved (always 0)].
     """
 
-    tks: tuple
-    tvs: tuple | None
-    bnds: tuple
+    keys: tuple
+    values: tuple | None
     special: jnp.ndarray
-    # optional (S, 1, 128) bloom-tag plane: per lane-column OR of the 32-bin
-    # tag bits (top 5 hash bits) of its C keys — rp._tag_maybes
-    tags: jnp.ndarray | None = None
 
 
-def _special_channel(kh, kl, vh, vl, row_valid, narrow):
-    """Detect the maximum-key sentinel rows and capture their value."""
-    if narrow:
-        is_max = (kl == EMPTY32) & row_valid
-    else:
-        is_max = (kh == EMPTY32) & (kl == EMPTY32) & row_valid
-    has_max = jnp.any(is_max)
-    first_max = jnp.argmax(is_max)
-    max_vh = jnp.where(has_max, vh[first_max], jnp.uint32(0))
-    max_vl = jnp.where(has_max, vl[first_max], jnp.uint32(0))
-    return is_max, has_max, max_vh, max_vl
-
-
-def build_range_table(kh, kl, vh, vl, n_valid, *, C: int = rp.DEFAULT_C,
-                      with_values: bool, order: str = "hash",
-                      narrow_values: bool = False,
-                      valid_mask=None, with_tags: bool = False) -> RangeTable:
-    """Sort build rows by the order words and reshape into the range table.
-
-    Zero scatters: sort -> pad -> reshape -> transpose; boundaries are
-    strided slices of the sorted order.  Invalid rows and real maximum
-    keys are forced to the all-ones sort sentinel so they pool with
-    padding at the end as EMPTY slots (max-key values exit via `special`).
-
-    order: "hash" (h, kh, kl), "key" (kh, kl), or "narrow" (kl, — requires
-    key_hi == 0 for all valid rows, caller-checked).
-    """
-    narrow = order == "narrow"
+def build_range_table(kh, kl, vh, vl, n_valid, *, narrow: bool = False,
+                      with_values: bool = True,
+                      narrow_values: bool = False) -> RangeTable:
+    """Sort build rows by (key words, row) into the range table."""
     n = kh.shape[0]
-    n_valid = jnp.asarray(n_valid, jnp.int32)
-    row_valid = jnp.arange(n, dtype=jnp.int32) < n_valid
-    if valid_mask is not None:
-        row_valid = row_valid & valid_mask
-
+    row_valid = jnp.arange(n, dtype=jnp.int32) < jnp.asarray(n_valid,
+                                                               jnp.int32)
     kh = jnp.where(row_valid, kh.astype(jnp.uint32), EMPTY32)
     kl = jnp.where(row_valid, kl.astype(jnp.uint32), EMPTY32)
     vh = vh.astype(jnp.uint32)
     vl = vl.astype(jnp.uint32)
 
-    is_max, has_max, max_vh, max_vl = _special_channel(
-        kh, kl, vh, vl, row_valid, narrow)
+    is_max = (kl == EMPTY32) if narrow else (kh == EMPTY32) & (kl == EMPTY32)
+    is_max = is_max & row_valid
+    has_max = jnp.any(is_max)
+    first_max = jnp.argmax(is_max)
+    max_vh = jnp.where(has_max, vh[first_max], jnp.uint32(0))
+    max_vl = jnp.where(has_max, vl[first_max], jnp.uint32(0))
 
-    S = n_super_rows(n, C)
-    npad = S * LANES * C
-    pad = npad - n
-
-    def padded(x, v=0xFFFFFFFF):
-        if pad == 0:
-            return x
-        return jnp.concatenate([x, jnp.full((pad,), v, jnp.uint32)])
-
-    if narrow:
-        cols = [padded(kl)]
-    elif order == "key":
-        cols = [padded(kh), padded(kl)]  # sentinel (MAX, MAX) sorts last
-    else:
-        h = hash_u64(kh, kl)
-        is_empty = (kh == EMPTY32) & (kl == EMPTY32)
-        h = jnp.where(is_empty, EMPTY32, h)  # sentinels sort last
-        cols = [padded(h), padded(kh), padded(kl)]
-    nk = len(cols)
-    nv = 0
+    key_cols = (kl,) if narrow else (kh, kl)
+    payload = ()
     if with_values:
-        # narrow_values: value_hi is identically zero (caller-checked) —
-        # it stays out of the sort, the table, and the kernel entirely
-        nv = 1 if narrow_values else 2
-        cols += [padded(vl, 0)] if narrow_values else [padded(vh, 0),
-                                                       padded(vl, 0)]
-        # unstable FULL-tuple sort: deterministic (the duplicate-key winner
-        # is the minimal-value row — input-order-independent) and cheaper
-        # than a stable sort, which internally adds a tiebreak column.
-        # The reference's winner is a data race (hash_join.cpp:147), so
-        # any fixed rule satisfies parity.
-    if with_tags:
-        # bloom-tag payload: tag = f(key), so tie permutations among equal
-        # keys cannot change it — dedup-winner determinism is unaffected
-        htag = hash_u64(kh, kl)
-        tag = jnp.where(row_valid & ~is_max,
-                        jnp.uint32(1) << (htag >> jnp.uint32(27)),
-                        jnp.uint32(0))
-        cols += [padded(tag, 0)]
-    sorted_cols = jax.lax.sort(tuple(cols), num_keys=nk + nv,
-                               is_stable=False)
-
-    def to_table(x):
-        return x.reshape(S, LANES, C).transpose(0, 2, 1)
-
-    def bounds(x):
-        # (S+1, 1, 128): unit middle dim keeps the per-super-row block
-        # legal for Mosaic; row S = the MAX sentinel end boundary.
-        b = x.reshape(S, LANES, C)[:, :, 0]
-        return jnp.concatenate(
-            [b, jnp.full((1, LANES), 0xFFFFFFFF, jnp.uint32)]
-        ).reshape(S + 1, 1, LANES)
-
-    bnds = tuple(bounds(c) for c in sorted_cols[:nk])
-    if narrow:
-        tks = (to_table(sorted_cols[0]),)
-    elif order == "key":
-        tks = (to_table(sorted_cols[0]), to_table(sorted_cols[1]))
-    else:
-        tks = (to_table(sorted_cols[1]), to_table(sorted_cols[2]))
-    tvs = None
-    if with_values:
-        tvs = tuple(to_table(sorted_cols[nk + i]) for i in range(nv))
-
-    tags_plane = None
-    if with_tags:
-        t3 = sorted_cols[-1].reshape(S, LANES, C)
-        tor = t3[:, :, 0]
-        for ci in range(1, C):
-            tor = tor | t3[:, :, ci]
-        tags_plane = tor.reshape(S, 1, LANES)
-
+        # narrow_values: value_hi is identically zero (caller-checked)
+        payload = (vl,) if narrow_values else (vh, vl)
+    rows = jnp.arange(n, dtype=jnp.int32)
+    # the row index as the last sort key makes the order total, so the
+    # sort is deterministic and equal keys keep input order
+    out = jax.lax.sort(key_cols + (rows,) + payload,
+                       num_keys=len(key_cols) + 1, is_stable=False)
+    nk = len(key_cols)
     special = jnp.stack([has_max.astype(jnp.uint32), max_vh, max_vl,
                          jnp.uint32(0)])
-    return RangeTable(tks, tvs, bnds, special, tags_plane)
+    return RangeTable(tuple(out[:nk]),
+                      tuple(out[nk + 1:]) if with_values else None, special)
 
 
-def _prep_probe(table: RangeTable, ph, pl, n_valid, *, W: int, C: int,
-                tile_m: int, order: str, small: bool, valid_mask=None,
-                blockwise: bool = False):
-    """Sort probes by the order words, pad to tiles, compute window starts.
+def _lex_lt(a_words, b_words):
+    """a < b, lexicographic over uint32 word tuples."""
+    lt = a_words[-1] < b_words[-1]
+    for a, b in zip(a_words[-2::-1], b_words[-2::-1]):
+        lt = (a < b) | ((a == b) & lt)
+    return lt
 
-    In SMALL mode (W == S, the window is the whole table) the sort and the
-    window-start search are skipped entirely — probes stay in input order
-    and every column is in-window, so the join is exact unconditionally.
 
-    BLOCKWISE mode (mid-size builds, see `blockwise_ok`): probes are
-    sorted only within independent BLOCK_M-element blocks (measured 4x
-    cheaper than the global sort, docs/DESIGN.md).  Each tile is still
-    internally sorted, so per-tile window starts work unchanged; a tile
-    now spans ~tile/BLOCK_M of the keyspace instead of ~tile/n, so the
-    window must cover ~S*tile/BLOCK_M super-rows — affordable exactly
-    when the table is small enough (the kernel and its unresolved-counter
-    exactness protocol are untouched).
+def search(table_keys, probe_keys):
+    """Position of each probe's key in the sorted table, or -1 if absent.
 
-    Returns (probe_word_planes, wstart, sp_count) where sp_count is the
-    number of valid maximum-key probes (resolved via the special channel,
-    outside the kernel).
+    A branchless lower bound: the power-of-two steps are unrolled, so the
+    whole search is one chain of gathers that XLA can fuse.  Returns the
+    first table row equal to the probe (int32), -1 when there is none.
     """
+    n = table_keys[0].shape[0]
+    if n == 0:
+        return jnp.full(probe_keys[0].shape, -1, jnp.int32)
+    pos = jnp.zeros(probe_keys[0].shape, jnp.int32)
+    step = 1 << (n.bit_length() - 1)
+    while step:
+        cand = pos + step
+        idx = jnp.minimum(cand, n) - 1
+        below = _lex_lt(tuple(w[idx] for w in table_keys), probe_keys)
+        pos = jnp.where(below & (cand <= n), cand, pos)
+        step >>= 1
+    idx = jnp.minimum(pos, n - 1)
+    eq = pos < n
+    for w, p in zip(table_keys, probe_keys):
+        eq = eq & (w[idx] == p)
+    return jnp.where(eq, idx, -1)
+
+
+def _device_search(table_keys, probe_keys):
+    """The search the join graphs run: the fused Pallas Triton kernel
+    (ops/pallas/range_probe.py) when lowered for a CUDA device, the plain
+    `search` everywhere else.  Both return identical positions; the kernel
+    measured faster on an H100 at the 1e8-row shape (PERF.md)."""
+    from flash_hash_join_tpu.ops.pallas import range_probe as rp
+    return jax.lax.platform_dependent(table_keys, probe_keys,
+                                      cuda=rp.search, default=search)
+
+
+def _probe(table: RangeTable, ph, pl, np_valid, narrow: bool):
+    """(found row or -1, valid non-max probe mask, valid max-key mask)."""
     n = ph.shape[0]
-    narrow = order == "narrow"
-    n_valid = jnp.asarray(n_valid, jnp.int32)
-    valid = jnp.arange(n, dtype=jnp.int32) < n_valid
-    if valid_mask is not None:
-        valid = valid & valid_mask
-
-    ph = jnp.where(valid, ph.astype(jnp.uint32), EMPTY32)
-    pl = jnp.where(valid, pl.astype(jnp.uint32), EMPTY32)
-    if narrow:
-        is_max = pl == EMPTY32
-    else:
-        is_max = (ph == EMPTY32) & (pl == EMPTY32)
-    sp_count = jnp.sum(is_max & valid).astype(jnp.int32)
-
-    tile = tile_m * LANES
-    npad = -(-n // tile) * tile
-    pad = npad - n
-
-    def padded(x):
-        if pad == 0:
-            return x
-        return jnp.concatenate(
-            [x, jnp.full((pad,), 0xFFFFFFFF, jnp.uint32)])
-
-    if narrow:
-        cols = [padded(pl)]
-    elif order == "key":
-        cols = [padded(ph), padded(pl)]
-    else:
-        h = hash_u64(ph, pl)
-        h = jnp.where(is_max, EMPTY32, h)
-        cols = [padded(h), padded(ph), padded(pl)]
-
-    ntiles = npad // tile
-    if small:
-        planes = tuple(c.reshape(-1, LANES) for c in cols)
-        return planes, jnp.zeros((ntiles,), jnp.int32), sp_count
-
-    if blockwise:
-        # callers (_probe_parts) slice exact BLOCK_M multiples and the
-        # gate enforces tile | BLOCK_M, so no re-padding can be needed
-        if npad % BLOCK_M:
-            raise ValueError(
-                f"blockwise probe prep needs a BLOCK_M multiple, got {npad}")
-        blocked = tuple(c.reshape(-1, BLOCK_M) for c in cols)
-        sorted_cols = jax.lax.sort(blocked, num_keys=len(blocked),
-                                   is_stable=False, dimension=1)
-        sorted_cols = tuple(c.reshape(-1) for c in sorted_cols)
-    else:
-        sorted_cols = jax.lax.sort(tuple(cols), num_keys=len(cols),
-                                   is_stable=False)
-
-    # window start per tile: L = #{boundaries strictly below the tile's
-    # first probe on the FIRST order word} lower-bounds the first probe's
-    # column, so the window can only miss HIGH (unresolved counter).
-    S = table.tks[0].shape[0]
-    first_w0 = sorted_cols[0][::tile]
-    flat_bnd0 = table.bnds[0][:S].reshape(-1)
-    L = jnp.searchsorted(flat_bnd0, first_w0, side="left").astype(jnp.int32)
-    wstart = jnp.clip((L - 1) // LANES, 0, max(S - W, 0))
-
-    planes = tuple(c.reshape(-1, LANES) for c in sorted_cols)
-    return planes, wstart, sp_count
-
-
-def _probe_parts(table, ph, pl, np_valid, *, S, W, C, tile_m, order,
-                 small, blockwise):
-    """Kernel invocation plan: [(planes, wstart, sp_count, W_part), ...].
-
-    One part normally; under BLOCKWISE two — the full 64K blocks (sorted
-    blockwise, window W) and the ragged tail (< BLOCK_M rows, unsorted,
-    window = whole table, exact unconditionally).  Validity splits with
-    the rows: the valid prefix of the tail is whatever np_valid leaves
-    beyond the full blocks.
-    """
-    if not blockwise:
-        planes, wstart, spc = _prep_probe(
-            table, ph, pl, np_valid, W=W, C=C, tile_m=tile_m, order=order,
-            small=small)
-        return [(planes, wstart, spc, W)]
-    n = ph.shape[0]
-    n_blk = (n // BLOCK_M) * BLOCK_M
-    nv = jnp.asarray(np_valid, jnp.int32)
-    nv_blk = jnp.minimum(nv, n_blk)
-    parts = []
-    p = _prep_probe(table, ph[:n_blk], pl[:n_blk], nv_blk, W=W, C=C,
-                    tile_m=tile_m, order=order, small=False,
-                    blockwise=True)
-    parts.append((*p, W))
-    if n_blk < n:
-        p = _prep_probe(table, ph[n_blk:], pl[n_blk:], nv - nv_blk,
-                        W=S, C=C, tile_m=tile_m, order=order, small=True)
-        parts.append((*p, S))
-    return parts
-
-
-def normalized_w_mult(n_build: int, n_probe: int, w_mult: int,
-                      full_valid: bool = True, C: int | None = None,
-                      tile_m: int = rp.DEFAULT_TILE_M) -> int:
-    """Smallest w_mult that compiles the same window as `w_mult`.
-
-    When min(base*w_mult, S, MAX_W) == min(base, S, MAX_W) the widened
-    retry rung is the identical program under a different cache key —
-    normalizing lets the compile cache reuse it and the api retry ladder
-    skip the rung entirely (round-3 advisor finding)."""
-    if w_mult == 1 or C is None and small_mode(n_build, default_C(n_build)):
-        return 1  # small mode: W = S regardless of w_mult
-    if C is None:
-        C = default_C(n_build)
-    tm = default_tile_m(small_mode(n_build, C), tile_m)
-    blockwise = blockwise_ok(n_build, n_probe, C, tm, full_valid)
-    S = n_super_rows(n_build, C)
-    base = (blockwise_window(S, tm) if blockwise
-            else plan_window(n_build, n_probe, C=C, tile_m=tm))
-    return 1 if min(base * w_mult, S, MAX_W) == min(base, S, MAX_W) \
-        else w_mult
-
-
-_LAYOUTS = {"hash": rp.WIDE, "key": rp.KEYORDER, "narrow": rp.NARROW}
-
-
-def _order_of(narrow: bool, order: str | None) -> str:
-    if narrow:
-        return "narrow"
-    return order or "hash"
+    valid = jnp.arange(n, dtype=jnp.int32) < jnp.asarray(np_valid, jnp.int32)
+    ph = ph.astype(jnp.uint32)
+    pl = pl.astype(jnp.uint32)
+    is_max = (pl == EMPTY32) if narrow else (ph == EMPTY32) & (pl == EMPTY32)
+    found = _device_search(table.keys, (pl,) if narrow else (ph, pl))
+    return found, valid & ~is_max, valid & is_max
 
 
 def range_join_count(kh, kl, vh, vl, ph, pl, nb_valid, np_valid, *,
-                     C: int | None = None, tile_m: int = rp.DEFAULT_TILE_M,
-                     W: int | None = None, narrow: bool = False,
-                     order: str | None = None, w_mult: int = 1,
-                     full_valid: bool = True, interpret: bool = False):
-    """Fused build+probe count.  Returns (count, special4) where
-    special[3] = unresolved probes (caller must fall back if != 0).
-
-    w_mult widens the planned window (retry rung for key-space density
-    mismatch in the un-hashed narrow/key orders — plan_window's span
-    estimate assumes matched densities)."""
-    order = _order_of(narrow, order)
-    if C is None:
-        C = default_C(kh.shape[0])
-    small = small_mode(kh.shape[0], C)
-    tile_m = default_tile_m(small, tile_m)
-    blockwise = (not small) and blockwise_ok(kh.shape[0], ph.shape[0], C,
-                                             tile_m, full_valid)
-    S = n_super_rows(kh.shape[0], C)
-    if W is None:
-        base = (blockwise_window(S, tile_m) if blockwise
-                else plan_window(kh.shape[0], ph.shape[0], C=C,
-                                 tile_m=tile_m))
-        W = min(base * w_mult, S, MAX_W)
-    # FHJ_RANGE_BLOOM=1 (trace-time): bloom-tag plane + tile-consensus
-    # scan skip inside the kernel — the measured A/B of VERDICT r3 item 6
-    with_tags = os.environ.get("FHJ_RANGE_BLOOM", "0") == "1"
-    table = build_range_table(kh, kl, vh, vl, nb_valid, C=C,
-                              with_values=False, order=order,
-                              with_tags=with_tags)
-    count = jnp.int32(0)
-    unresolved = jnp.int32(0)
-    sp_count = jnp.int32(0)
-    for planes, wstart, spc, Wp in _probe_parts(
-            table, ph, pl, np_valid, S=S, W=W, C=C, tile_m=tile_m,
-            order=order, small=small, blockwise=blockwise):
-        c, u = rp.range_probe_count(
-            table.bnds, table.tks, planes, wstart, W=Wp, C=C,
-            tile_m=tile_m, layout=_LAYOUTS[order], interpret=interpret,
-            tags=table.tags)
-        count += c.astype(jnp.int32)
-        unresolved += u.astype(jnp.int32)
-        sp_count += spc
-    count = count + sp_count * (table.special[0] > 0)
-    special = table.special.at[3].set(unresolved.astype(jnp.uint32))
-    return count.astype(jnp.int32), special
-
-
-def range_join_count_chunked(kh, kl, vh, vl, ph, pl, nb_valid, np_valid, *,
-                             n_chunks: int, C: int | None = None,
-                             tile_m: int = rp.DEFAULT_TILE_M,
-                             W: int | None = None, narrow: bool = False,
-                             order: str | None = None, w_mult: int = 1,
-                             interpret: bool = False):
-    """Streamed-probe count: build the range table ONCE, scan probe chunks.
-
-    The reference bounds its working set with a 2048-row morsel loop
-    regardless of probe length (hash_join.cpp:302,:347).  This is the
-    IN-GRAPH analog (lax.scan over chunks): transient sort/pad buffers
-    scale with the CHUNK, but the whole probe side stays device-resident —
-    which OOMs at 1e9 rows (8 GB of input planes), so the production path
-    (api.py) streams chunks from the HOST instead and this op remains the
-    alternative for probe sides that fit HBM but whose transients do not.
-
-    Exactness: identical protocol to range_join_count — per-chunk
-    unresolved counts accumulate into special[3]; max-key probes resolve
-    via the special channel.
-    """
-    order = _order_of(narrow, order)
-    if C is None:
-        C = default_C(kh.shape[0])
-    small = small_mode(kh.shape[0], C)
-    tile_m = default_tile_m(small, tile_m)
-    n = ph.shape[0]
-    per_chunk = -(-n // n_chunks)
-    blockwise = (not small) and blockwise_ok(kh.shape[0], per_chunk, C,
-                                             tile_m, False)
-    S = n_super_rows(kh.shape[0], C)
-    if W is None:
-        base = (blockwise_window(S, tile_m) if blockwise
-                else plan_window(kh.shape[0], per_chunk, C=C,
-                                 tile_m=tile_m))
-        W = min(base * w_mult, S, MAX_W)
-    table = build_range_table(kh, kl, vh, vl, nb_valid, C=C,
-                              with_values=False, order=order)
-
-    tile = tile_m * LANES
-    chunk_rows = -(-per_chunk // tile) * tile
-    npad = chunk_rows * n_chunks
-    pad = npad - n
-
-    def padded(x):
-        if pad == 0:
-            return x
-        return jnp.concatenate(
-            [x.astype(jnp.uint32),
-             jnp.full((pad,), 0xFFFFFFFF, jnp.uint32)])
-
-    ph_c = padded(ph).reshape(n_chunks, chunk_rows)
-    pl_c = padded(pl).reshape(n_chunks, chunk_rows)
-    bases = jnp.arange(n_chunks, dtype=jnp.int32) * chunk_rows
-    np_valid = jnp.asarray(np_valid, jnp.int32)
-
-    def body(carry, xs):
-        cnt, unres, spc = carry
-        phx, plx, base = xs
-        valid_c = jnp.clip(np_valid - base, 0, chunk_rows)
-        for planes, wstart, sp_c, Wp in _probe_parts(
-                table, phx, plx, valid_c, S=S, W=W, C=C, tile_m=tile_m,
-                order=order, small=small, blockwise=blockwise):
-            c, u = rp.range_probe_count(
-                table.bnds, table.tks, planes, wstart, W=Wp, C=C,
-                tile_m=tile_m, layout=_LAYOUTS[order], interpret=interpret)
-            cnt += c.astype(jnp.int32)
-            unres += u.astype(jnp.int32)
-            spc += sp_c
-        return (cnt, unres, spc), None
-
-    (count, unresolved, sp_count), _ = jax.lax.scan(
-        body, (jnp.int32(0), jnp.int32(0), jnp.int32(0)),
-        (ph_c, pl_c, bases))
-    count = count + sp_count * (table.special[0] > 0)
-    special = table.special.at[3].set(unresolved.astype(jnp.uint32))
-    return count.astype(jnp.int32), special
+                     narrow: bool = False):
+    """Fused build+probe count.  Returns (count:i32, special4:u32)."""
+    table = build_range_table(kh, kl, vh, vl, nb_valid, narrow=narrow,
+                              with_values=False)
+    found, ok, max_probe = _probe(table, ph, pl, np_valid, narrow)
+    count = (jnp.sum((found >= 0) & ok, dtype=jnp.int32)
+             + jnp.sum(max_probe, dtype=jnp.int32)
+             * (table.special[0] > 0))
+    return count.astype(jnp.int32), table.special
 
 
 def range_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid, np_valid, *,
-                           C: int | None = None,
-                           tile_m: int = rp.DEFAULT_TILE_M,
-                           W: int | None = None, narrow: bool = False,
-                           order: str | None = None,
-                           narrow_values: bool = False, w_mult: int = 1,
-                           full_valid: bool = True,
-                           interpret: bool = False):
+                           narrow: bool = False,
+                           narrow_values: bool = False):
     """Fused build+probe materialize: (count, out_kh, out_kl, out_vh,
-    out_vl, special).  Matched rows are compacted in sort order
-    (deterministic; the reference's own output order is thread-interleaved,
-    SURVEY.md §3, so any fixed order satisfies the contract)."""
-    n = ph.shape[0]
-    order = _order_of(narrow, order)
-    narrow = order == "narrow"
-    if C is None:
-        C = default_C(kh.shape[0])
-    small = small_mode(kh.shape[0], C)
-    tile_m = default_tile_m(small, tile_m)
-    blockwise = (not small) and blockwise_ok(kh.shape[0], n, C, tile_m,
-                                             full_valid)
-    S = n_super_rows(kh.shape[0], C)
-    if W is None:
-        base = (blockwise_window(S, tile_m) if blockwise
-                else plan_window(kh.shape[0], n, C=C, tile_m=tile_m))
-        W = min(base * w_mult, S, MAX_W)
-    with_tags = os.environ.get("FHJ_RANGE_BLOOM", "0") == "1"
-    table = build_range_table(kh, kl, vh, vl, nb_valid, C=C,
-                              with_values=True, order=order,
-                              narrow_values=narrow_values,
-                              with_tags=with_tags)
-    hits, vhs, vls, plane_parts, unresolved = [], [], [], [], jnp.int32(0)
-    for planes, wstart, _spc, Wp in _probe_parts(
-            table, ph, pl, np_valid, S=S, W=W, C=C, tile_m=tile_m,
-            order=order, small=small, blockwise=blockwise):
-        hit_b, vh_b, vl_b, u = rp.range_probe_materialize(
-            table.bnds, table.tks, table.tvs, planes, wstart,
-            W=Wp, C=C, tile_m=tile_m, layout=_LAYOUTS[order],
-            interpret=interpret, tags=table.tags)
-        hits.append(hit_b.reshape(-1))
-        vhs.append(vh_b.reshape(-1))
-        vls.append(vl_b.reshape(-1))
-        plane_parts.append(tuple(p.reshape(-1) for p in planes))
-        unresolved += u.astype(jnp.int32)
-    hit = jnp.concatenate(hits).astype(jnp.bool_) if len(hits) > 1 \
-        else hits[0].astype(jnp.bool_)
-    mvh = jnp.concatenate(vhs) if len(vhs) > 1 else vhs[0]
-    mvl = jnp.concatenate(vls) if len(vls) > 1 else vls[0]
-    def plane_flat(i):
-        if len(plane_parts) == 1:
-            return plane_parts[0][i]
-        return jnp.concatenate([pp[i] for pp in plane_parts])
+    out_vl, special).  Matched rows are compacted in probe order."""
+    from flash_hash_join_tpu.ops.compact import compact_by_mask
 
-    npad = hit.shape[0]
-    # only the key planes are read downstream (order "hash" also carries a
-    # hash plane at index 0 — never concatenated, never materialized)
-    if narrow:
-        pks_h = jnp.zeros((npad,), jnp.uint32)
-        pks_l = plane_flat(0)
-        sorted_is_max = pks_l == EMPTY32
-    elif order == "key":
-        pks_h = plane_flat(0)
-        pks_l = plane_flat(1)
-        sorted_is_max = (pks_h == EMPTY32) & (pks_l == EMPTY32)
-    else:
-        pks_h = plane_flat(1)
-        pks_l = plane_flat(2)
-        sorted_is_max = (pks_h == EMPTY32) & (pks_l == EMPTY32)
-
-    # Maximum-key probes carry the EMPTY pattern in the kernel (no false
-    # hits); resolve them here via the special channel.  Sorted modes:
-    # they pool in MAX runs with padding/invalid rows (identical word
-    # tuples, hence interchangeable) — one global tail run under the
-    # global sort, one PER BLOCK under the blockwise sort — so pick the
-    # first n_max_valid MAX positions by cumulative rank, which is
-    # layout-independent.  Small mode: rows keep input order, so
-    # position < np_valid identifies the real ones directly.
-    has_max = table.special[0] > 0
-    n_valid_i = jnp.asarray(np_valid, jnp.int32)
-    rank = jnp.arange(npad, dtype=jnp.int32)
-    if small:
-        sp_hit = sorted_is_max & (rank < n_valid_i) & has_max
-    else:
-        in_valid = jnp.arange(n, dtype=jnp.int32) < n_valid_i
-        if narrow:
-            raw_max = pl.astype(jnp.uint32) == EMPTY32
-        else:
-            raw_max = (ph.astype(jnp.uint32) == EMPTY32) & (
-                pl.astype(jnp.uint32) == EMPTY32)
-        n_max_valid = jnp.sum(raw_max & in_valid).astype(jnp.int32)
-        max_rank = jnp.cumsum(sorted_is_max.astype(jnp.int32))
-        sp_hit = sorted_is_max & (max_rank <= n_max_valid) & has_max
-    hit = hit | sp_hit
-    mvh = jnp.where(sp_hit, table.special[1], mvh)
-    mvl = jnp.where(sp_hit, table.special[2], mvl)
-
-    from flash_hash_join_tpu.ops.pallas.stream_compact import (
-        compact_by_mask_fast)
-    # Exact-offset stream compaction (stable: probe-plane order, which is
-    # input order in small mode and (hash, key) order otherwise — both
-    # deterministic).  Round 3 replaced the 4-5-column compaction sort
-    # (~6 ns/row) with a blockwise sort + shingled-DMA concat (~2 ns/row
-    # for 4 planes); round 4's pack kernel (FHJ_COMPACT=pack default)
-    # removes the sort too — in-kernel lane pack + MXU permutation matmul.
-    # Identically-zero planes (narrow keys/values) stay out entirely.
-    zeros_n = lambda: jnp.zeros((n,), jnp.uint32)  # noqa: E731
-    if narrow and narrow_values:
-        count, (out_l, out_vl) = compact_by_mask_fast(
-            hit, (pks_l, mvl), n_out=n, interpret=interpret)
-        out_h, out_vh = zeros_n(), zeros_n()
-    elif narrow:
-        count, (out_l, out_vh, out_vl) = compact_by_mask_fast(
-            hit, (pks_l, mvh, mvl), n_out=n, interpret=interpret)
-        out_h = zeros_n()
-    elif narrow_values:
-        count, (out_h, out_l, out_vl) = compact_by_mask_fast(
-            hit, (pks_h, pks_l, mvl), n_out=n, interpret=interpret)
-        out_vh = zeros_n()
-    else:
-        count, (out_h, out_l, out_vh, out_vl) = compact_by_mask_fast(
-            hit, (pks_h, pks_l, mvh, mvl), n_out=n, interpret=interpret)
-    special = table.special.at[3].set(unresolved.astype(jnp.uint32))
-    return count, out_h, out_l, out_vh, out_vl, special
+    table = build_range_table(kh, kl, vh, vl, nb_valid, narrow=narrow,
+                              with_values=True, narrow_values=narrow_values)
+    found, ok, max_probe = _probe(table, ph, pl, np_valid, narrow)
+    sp_hit = max_probe & (table.special[0] > 0)
+    hit = ((found >= 0) & ok) | sp_hit
+    idx = jnp.maximum(found, 0)
+    vals = [jnp.where(sp_hit, table.special[2], table.values[-1][idx])]
+    if not narrow_values:
+        vals.insert(0, jnp.where(sp_hit, table.special[1],
+                                 table.values[0][idx]))
+    keys = [pl.astype(jnp.uint32)] if narrow else [ph.astype(jnp.uint32),
+                                                   pl.astype(jnp.uint32)]
+    # identically-zero planes (narrow keys/values) stay out of compaction
+    count, outs = compact_by_mask(hit, tuple(keys + vals))
+    outs = list(outs)
+    zeros = jnp.zeros(ph.shape, jnp.uint32)
+    out_kh = zeros if narrow else outs.pop(0)
+    out_kl = outs.pop(0)
+    out_vh = zeros if narrow_values else outs.pop(0)
+    out_vl = outs.pop(0)
+    return count, out_kh, out_kl, out_vh, out_vl, table.special

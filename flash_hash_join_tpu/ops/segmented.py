@@ -1,6 +1,6 @@
 """Segmented scans over sorted runs — the engine's reduction workhorse.
 
-TPU-native replacement for every "per-bucket accumulate" in the reference
+The replacement for every "per-bucket accumulate" in the reference
 (atomic fetch_or into the bloom directory hash_join.cpp:122, per-thread
 histogram merges :224-236): rows arrive sorted by segment id (we always sort
 for table builds / partitioning anyway), a `jax.lax.associative_scan` with a
@@ -35,10 +35,10 @@ def segmented_scan(combine, values, seg_ids: jnp.ndarray):
 
     Implemented as a Hillis-Steele doubling scan (ceil(log2 n) rounds of
     shift + masked combine) rather than jax.lax.associative_scan: the
-    even-odd recursion of associative_scan compiles pathologically slowly on
-    TPU at 1e7+ elements (minutes), while this unrolls to ~24 cheap fused
-    vector steps.  Work is O(n log n) but each round is pure VPU + HBM
-    streaming, which is exactly what the hardware is good at.
+    even-odd recursion of associative_scan traces into a deep graph that
+    compiles slowly at 1e7+ elements, while this unrolls to ~24 cheap
+    fused vector steps.  Work is O(n log n) but each round is one
+    elementwise pass streaming through device memory.
     """
     n = seg_ids.shape[0]
     if n == 0:

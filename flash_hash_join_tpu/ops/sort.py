@@ -2,7 +2,7 @@
 
 The reference's parallel radix partitioner (hash_join.cpp:209-292: per-thread
 histograms -> prefix sums -> scatter) is a shared-memory construction; the
-TPU-native equivalent is sort-by-partition-id + segment offsets, which XLA
+equivalent here is sort-by-partition-id + segment offsets, which XLA
 lowers to its native multi-pass device sort.  The partition offsets play the
 role of the reference's prefix-summed histogram and double as the shuffle
 plan for the distributed tier (SURVEY.md §2 C5/C6 mapping).

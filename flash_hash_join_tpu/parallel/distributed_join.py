@@ -1,4 +1,4 @@
-"""Distributed hash join over a TPU device mesh (shard_map + all_to_all).
+"""Distributed hash join over a device mesh (shard_map + all_to_all).
 
 NOT PRESENT in the reference (single-process CPU, SURVEY.md §2 "Parallelism
 strategies").  Design per SURVEY.md §5/§7 distributed tier:
@@ -271,7 +271,7 @@ def distributed_join_exact(
     max_retries: int = 3,
 ):
     """Join that is exact by construction: retries with a grown quota
-    until the overflow counter is zero (VERDICT round-1 item 5).
+    until the overflow counter is zero.
 
     Columns of any length — padded to mesh divisibility here, with the
     true row counts passed as validity thresholds.  Count mode returns

@@ -1,15 +1,16 @@
 """Multi-host initialization + pod-slice mesh construction.
 
 NOT PRESENT in the reference (single node).  The north star
-(BASELINE.json) demands a tier that scales 1 chip -> 1 host -> >= 2 hosts;
-on TPU that is `jax.distributed.initialize` (one process per host, all
-chips of the slice visible as global devices) plus a mesh whose axis order
-puts the join's all_to_all on ICI within a host before DCN across hosts.
+(BASELINE.json) demands a tier that scales 1 device -> 1 host -> >= 2
+hosts: `jax.distributed.initialize` (one process per host, every device
+of the cluster visible as a global device) plus a mesh whose axis order
+keeps the join's all_to_all between devices of one host (NVLink) apart
+from the slices that cross hosts.
 
-This image exposes one chip, so multi-host runs are validated structurally:
-the same `build_distributed_join` graph compiles over any 1-D mesh (the
-driver's dryrun runs it on 8 virtual devices), and this module is the
-documented entry point for real slices.
+The same `build_distributed_join` graph compiles over any 1-D mesh: one
+host's 4 GPUs (chip_smoke.py --four-cards), 8 virtual CPU devices (the
+test suite), or 2 processes x 4 virtual devices (tests/test_multihost.py,
+through this module).
 """
 
 from __future__ import annotations
@@ -19,30 +20,27 @@ import jax
 from jax.sharding import Mesh
 
 
-def initialize_multihost(coordinator_address: str | None = None,
-                         num_processes: int | None = None,
-                         process_id: int | None = None) -> None:
-    """Initialize jax.distributed for a multi-host pod slice.
+def initialize_multihost(coordinator_address: str, num_processes: int,
+                         process_id: int) -> None:
+    """Initialize jax.distributed for a multi-host cluster.
 
-    On Cloud TPU the arguments are discovered from the environment; pass
-    them explicitly elsewhere.  Safe to call once per process, before any
-    jax computation.
+    Nothing is discovered from the environment: every process names the
+    coordinator (host:port), the process count and its own id.  Call once
+    per process, before any jax computation.
     """
-    kwargs = {}
-    if coordinator_address is not None:
-        kwargs = dict(coordinator_address=coordinator_address,
-                      num_processes=num_processes, process_id=process_id)
-    jax.distributed.initialize(**kwargs)
+    jax.distributed.initialize(coordinator_address=coordinator_address,
+                               num_processes=num_processes,
+                               process_id=process_id)
 
 
 def pod_mesh(axis_name: str = "x") -> Mesh:
-    """1-D mesh over ALL global devices of the slice, ordered host-major.
+    """1-D mesh over ALL global devices of the cluster, ordered host-major.
 
-    Host-major order makes the hash shuffle's all_to_all between
-    same-host destinations ride ICI; only the inter-host slices of the
-    exchange cross DCN.  The join's device id is a hash bit-slice
-    (parallel/shuffle.py), so the device count must be a power of two —
-    true for TPU pod slices.
+    Host-major order keeps the hash shuffle's all_to_all between
+    same-host destinations inside a host; only the inter-host slices of
+    the exchange cross the network.  The join's device id is a hash
+    bit-slice (parallel/shuffle.py), so the device count must be a power
+    of two.
     """
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     n = len(devs)

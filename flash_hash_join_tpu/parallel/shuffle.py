@@ -3,14 +3,14 @@
 The distributed generalization of the reference's radix partitioner
 (parallel_radix_partition_kv/_k, hash_join.cpp:209-292): partition id = top
 bits of the SAME hash used for table bucketing, but here the partition id
-selects the destination DEVICE and the exchange rides ICI via
+selects the destination DEVICE and the exchange rides the interconnect via
 `jax.lax.all_to_all` instead of a shared-memory scatter.
 
 XLA collectives need static shapes, so the ragged exchange uses fixed-quota
 buckets: each device sorts its rows by destination, packs them into ONE
 (ndev, ncols+1, quota) send tensor — all columns plus the per-bucket counts
 ride a single all_to_all (round 1 issued one collective per column; fusing
-them lets ICI see one large transfer and leaves XLA's latency-hiding
+them lets the interconnect see one large transfer and leaves XLA's latency-hiding
 scheduler one op to overlap with compute).  Rows beyond the quota are
 dropped and COUNTED (returned as `overflow`, psum'd) — callers size the
 quota with a safety factor, handle skew with heavy-hitter replication

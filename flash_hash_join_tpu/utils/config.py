@@ -20,13 +20,13 @@ def next_pow2(x: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class JoinConfig:
-    """Static tuning knobs for the TPU join engine.
+    """Static tuning knobs for the join engine.
 
     Attributes:
       group_size: slots per hash-table bucket group.  A group is stored as one
         contiguous row of ``2*group_size`` uint32 words (hi halves then lo
-        halves), i.e. 64 bytes at the default of 8 — one HBM transaction per
-        probe touch.  Plays the role of the reference's cache-line blocking.
+        halves), i.e. 64 bytes at the default of 8 — two 32-byte memory
+        sectors per probe touch.  Plays the role of the reference's cache-line blocking.
       growth: slots-per-build-row factor.  2.0 => load factor 0.5 (the
         reference uses 1.5x rounded to pow2, ~load 2/3; we run slightly
         sparser because our probe cost is per *group* touched, not per slot).
@@ -35,8 +35,8 @@ class JoinConfig:
         ops/hash_table.py).  Chains longer than this are dropped like the
         reference drops inserts into a full table (hash_join.cpp:149).
       probe_chunk: probe keys processed per pipeline step.  Bounds the
-        (chunk, 2*group_size) gather window held in HBM/VMEM — the analog of
-        the reference's PROBE_BATCH_SIZE=2048 morsels, but sized for TPU.
+        (chunk, 2*group_size) gather window held in device memory — the
+        analog of the reference's PROBE_BATCH_SIZE=2048 morsels.
       max_probe_iters: hard bound on the chain-walk while_loop.
       bloom_k: number of bits set per key in the per-group bloom word.
       min_groups: floor on the home-group count (keeps tiny builds sane).

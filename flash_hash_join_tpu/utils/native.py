@@ -3,7 +3,7 @@ inside the package).
 
 Replaces the reference's pybind11 boundary (hash_join.cpp:598-640) for the
 HOST-side runtime pieces only: CSV column ingest and the exact join oracle.
-The compute path never touches this — it lives on the TPU.
+The compute path never touches this — it runs on the JAX device.
 
 Builds the shared library on first use (g++ -O3) and caches it next to the
 source, falling back to ~/.cache/fhj_native when site-packages is

@@ -1,11 +1,10 @@
 """uint64 <-> (hi, lo) uint32-pair packing.
 
-TPU vector units are 32-bit-centric; XLA emulates 64-bit integers with pairs
-anyway, so we make the pair representation explicit and SoA: every u64 column
-travels through the engine as two uint32 arrays.  The reference keeps native
-u64 scalars (hash_join.cpp:40-44, numpy uint64 buffers at :385); the packing
-here is the TPU-native replacement and all comparisons become two lane
-compares ANDed (SURVEY.md §7 "u64 on TPU").
+JAX runs with 32-bit integers unless x64 mode is on, so the pair
+representation is explicit and SoA: every u64 column travels through the
+engine as two uint32 arrays.  The reference keeps native u64 scalars
+(hash_join.cpp:40-44, numpy uint64 buffers at :385); here all comparisons
+become two word compares ANDed (SURVEY.md §7).
 """
 
 from __future__ import annotations

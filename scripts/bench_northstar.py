@@ -2,8 +2,7 @@
 
 BASELINE.json's target is >= 1e9 probe rows/s/chip count-only on a 1e8-row
 join; the reference CPU anchor is 127M rows/s at 4e7 (BASELINE.md).  This
-script records where the engine actually is at 1e8 scale (VERDICT round-1
-item 3 asks for this point explicitly).
+script records where the engine actually is at 1e8 scale.
 
 Run: python scripts/bench_northstar.py [--n 100000000] [--repeats 3]
 """

@@ -1,12 +1,12 @@
-"""Distributed-join scaling harness (virtual mesh or real slice).
+"""Distributed-join scaling harness (virtual mesh or real devices).
 
-North star (BASELINE.json): >= 80% rows/s scaling efficiency from 1 chip
-to 1 host to >= 2 hosts.  Real multi-chip hardware is not reachable from
-this image, so by default this runs the FULL distributed graph on 1/2/4/8
-virtual CPU devices — validating that the sharded program compiles,
-executes, and stays exact at every width (time on a virtual mesh measures
-nothing; on a real slice, run with JAX_PLATFORMS unset and read the
-throughput column).
+North star (BASELINE.json): >= 80% rows/s scaling efficiency from 1
+device to 1 host to >= 2 hosts.  By default (JAX_PLATFORMS unset) this
+runs the FULL distributed graph on 1/2/4/8 virtual CPU devices —
+validating that the sharded program compiles, executes, and stays exact
+at every width; a time on a virtual mesh measures nothing.  With
+JAX_PLATFORMS=cuda it runs on the host's GPUs and the throughput column
+is a device measurement.
 
 Run: python scripts/bench_scaling.py [--n-per-dev 65536]
 """

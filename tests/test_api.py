@@ -34,39 +34,57 @@ def test_all_reference_functions_agree():
         assert secs >= 0.0
 
 
-def test_vmem_strategy_used_and_exact():
-    """The vmem bucket strategy stays available explicitly (the adaptive
-    plan routes everything to the measured-faster partitioned tier)."""
+def test_vmem_strategy_raises():
+    """The removed vmem tier is an unknown strategy now: ValueError, at
+    the API and at the engine, and the adaptive plan never names it."""
+    from flash_hash_join_tpu import engine
     assert choose_plan(30_000, 200_000, DEFAULT_CONFIG).strategy == (
         "partitioned")
-    rng = np.random.default_rng(1)
-    bk = rng.integers(0, 2**64, 1_000, dtype=np.uint64)
-    bv = rng.integers(0, 2**63, 1_000, dtype=np.uint64)
-    pk = np.concatenate([rng.choice(bk, 100_000),
-                         rng.integers(0, 2**64, 100_000, dtype=np.uint64)])
-    count, _ = fj.adaptive_join_count(bk, bv, pk)
-    assert count == oracle_count(bk, pk)
-    count2, _, keys, vals = fj.join_materialize(bk, bv, pk,
-                                                return_arrays=True)
-    assert count2 == count
-    assert len(keys) == count
+    bk = np.arange(10, dtype=np.uint64)
+    with pytest.raises(ValueError):
+        fj.join_count(bk, bk, bk, strategy="vmem")
+    with pytest.raises(ValueError):
+        fj.join_materialize(bk, bk, bk, strategy="vmem")
+    with pytest.raises(ValueError):
+        engine._graph_fn(10, 10, "count", "vmem", False, DEFAULT_CONFIG, 4)
 
 
-def test_vmem_overflow_falls_back_exactly(monkeypatch):
-    """Force bucket overflow (r_slots too small for the key count) and check
-    the API silently reruns with merge and stays exact."""
-    from flash_hash_join_tpu.ops import bucket_table as bt
-    monkeypatch.setattr(bt, "r_slots_for", lambda n: 8)
+@pytest.mark.parametrize("strategy", ["radix", "", "Global", "bucket"])
+def test_unknown_strategy_raises(strategy):
     from flash_hash_join_tpu import engine
-    engine._compiled.cache_clear()
+    bk = np.arange(10, dtype=np.uint64)
+    with pytest.raises(ValueError):
+        fj.join_count(bk, bk, bk, strategy=strategy)
+    for mode in ("count", "materialize"):
+        with pytest.raises(ValueError):
+            engine._graph_fn(10, 10, mode, strategy, False, DEFAULT_CONFIG,
+                             4)
+
+
+def test_global_overflow_falls_back_exactly():
+    """Force global-table overflow (a table far too small for the build)
+    and check the API silently reruns with merge and stays exact."""
+    import dataclasses
+    from flash_hash_join_tpu import api
+    from flash_hash_join_tpu.engine import JoinEngine
     rng = np.random.default_rng(2)
-    bk = np.unique(rng.integers(0, 2**63, 5_000, dtype=np.uint64))
+    bk = np.concatenate([np.full(5_000, 99, np.uint64),
+                         rng.integers(0, 2**63, 5_000, dtype=np.uint64)])
     bv = rng.integers(0, 2**63, len(bk), dtype=np.uint64)
     pk = np.concatenate([rng.choice(bk, 20_000),
                          rng.integers(0, 2**63, 20_000, dtype=np.uint64)])
-    count, _ = fj.join_count(bk, bv, pk, strategy="vmem")
+    eng = api.default_engine()
+    saved = eng.cfg
+    eng.cfg = dataclasses.replace(saved, growth=0.05, overflow_groups=1)
+    try:
+        count, _, info = api._run_join(bk, bv, pk, mode="count",
+                                       strategy="global", use_bloom=False,
+                                       return_info=True)
+    finally:
+        eng.cfg = saved
+    assert isinstance(eng, JoinEngine)
     assert count == oracle_count(bk, pk)
-    engine._compiled.cache_clear()
+    assert info["strategy"] == "merge"
 
 
 def test_merge_strategy_via_extended_api():
@@ -76,14 +94,13 @@ def test_merge_strategy_via_extended_api():
     pk = rng.integers(0, 5_000, 4_000, dtype=np.uint64)
     c1, _ = fj.join_count(bk, bv, pk, strategy="merge")
     c2, _ = fj.join_count(bk, bv, pk, strategy="global")
-    c3, _ = fj.join_count(bk, bv, pk, strategy="vmem")
+    c3, _ = fj.join_count(bk, bv, pk, strategy="partitioned")
     assert c1 == c2 == c3 == oracle_count(bk, pk)
 
 
 def test_api_narrow_density_mismatch_ladder():
-    """Probe keys spanning a wider range than build keys overflow the
-    narrow order's matched-density window plan; the retry ladder
-    (narrow w_mult=4 -> hash -> merge) must keep the result exact."""
+    """Probe keys spanning a wider range than build keys: the adaptive
+    path (dense build domain) stays exact for count and materialize."""
     import flash_hash_join_tpu as fj
 
     rng = np.random.default_rng(31)
@@ -124,7 +141,7 @@ def test_bloom_alias_introspection():
     assert fj.bloom_is_distinct(10_000, 10_000, strategy="global")
     assert not fj.bloom_is_distinct(10_000, 10_000, strategy="partitioned")
     assert fj.plan_strategy(10_000, 10_000) in (
-        "partitioned", "vmem", "global", "merge")
+        "partitioned", "global", "merge")
 
 
 def test_bloom_alias_reuses_compiled_program():

@@ -1,15 +1,17 @@
-"""Chunked probe streaming + feasibility model (VERDICT r2 items 3-4).
+"""Chunked probe streaming + feasibility model (models/cost.py).
 
-The feasibility model (models/cost.py) must select chunking for probe
-sides whose transient buffers exceed HBM, and the chunked graph must stay
-exact — including max-key sentinels, duplicates, and non-divisible sizes.
+The feasibility model must select chunking for probe sides whose
+transient buffers exceed the device budget (read from memory_stats()),
+and the host-chunked stream must stay exact — including max-key
+sentinels, duplicates, and non-divisible sizes.
 """
 
 import numpy as np
 import pytest
 
+from flash_hash_join_tpu.models import cost
 from flash_hash_join_tpu.models.cost import (
-    HBM_BUDGET_BYTES, choose_plan, plan_probe_chunks)
+    CPU_TEST_BUDGET_BYTES, choose_plan, plan_probe_chunks)
 from flash_hash_join_tpu.utils.config import DEFAULT_CONFIG
 
 
@@ -29,7 +31,7 @@ def test_plan_chunks_baseline_config3():
 def test_plan_respects_budget_knob():
     # a >HBM-probe plan selects chunking and scales with the budget
     tight = plan_probe_chunks(1_000_000, 50_000_000, "count",
-                              budget_bytes=HBM_BUDGET_BYTES // 8)
+                              budget_bytes=CPU_TEST_BUDGET_BYTES // 64)
     assert tight > plan_probe_chunks(1_000_000, 50_000_000, "count")
 
 
@@ -39,38 +41,34 @@ def test_choose_plan_carries_chunks():
     assert plan.probe_chunks > 1
 
 
+def _chunked(bk, pk, n_chunks, mode="count"):
+    from flash_hash_join_tpu import api
+    bv = np.arange(len(bk), dtype=np.uint64)
+    return api._run_chunked(bk, bv, pk, mode=mode, strategy="partitioned",
+                            use_bloom=False, return_arrays=mode != "count",
+                            return_info=False, probe_chunks=n_chunks)
+
+
 @pytest.mark.parametrize("nb,npr,n_chunks,narrow,seed", [
     (1000, 5000, 3, True, 0),
     (300, 4097, 4, True, 1),      # non-divisible, pad straddles chunks
-    (20000, 60000, 3, False, 2),  # wide keys, hash order
+    (20000, 60000, 3, False, 2),  # wide keys
     (1000, 3000, 2, True, 3),     # with max-key sentinels both sides
 ])
 def test_chunked_count_exact(nb, npr, n_chunks, narrow, seed):
-    import jax.numpy as jnp
-    from flash_hash_join_tpu.ops import range_table as rt
-
     rng = np.random.default_rng(seed)
     hi = 2**32 if narrow else 2**63
     bk = rng.integers(0, min(hi, nb * 2), nb, dtype=np.uint64)
     pk = rng.integers(0, min(hi, nb * 2), npr, dtype=np.uint64)
+    if not narrow:
+        bk = bk * np.uint64(2**33) + bk
+        pk = pk * np.uint64(2**33) + pk
     if seed == 3:
         bk[5] = 2**32 - 1  # narrow max-key sentinel
         pk[7:20] = 2**32 - 1
     expected = int(np.isin(pk, bk).sum())
-
-    def split(a):
-        return ((a >> np.uint64(32)).astype(np.uint32),
-                (a & np.uint64(0xFFFFFFFF)).astype(np.uint32))
-
-    kh, kl = split(bk)
-    ph, pl = split(pk)
-    zeros = np.zeros(nb, np.uint32)
-    count, special = rt.range_join_count_chunked(
-        jnp.asarray(kh), jnp.asarray(kl), jnp.asarray(zeros),
-        jnp.asarray(zeros), jnp.asarray(ph), jnp.asarray(pl), nb, npr,
-        n_chunks=n_chunks, narrow=narrow, interpret=True)
-    assert int(special[3]) == 0
-    assert int(count) == expected
+    count, _ = _chunked(bk, pk, n_chunks)
+    assert count == expected
 
 
 def test_chunked_matches_single_shot():
@@ -84,14 +82,14 @@ def test_chunked_matches_single_shot():
     z = jnp.zeros((nb,), jnp.uint32)
     zp = jnp.zeros((npr,), jnp.uint32)
     c1, s1 = rt.range_join_count(z, jnp.asarray(kl), z, z, zp,
-                                 jnp.asarray(pl), nb, npr, narrow=True,
-                                 interpret=True)
-    c2, s2 = rt.range_join_count_chunked(z, jnp.asarray(kl), z, z, zp,
-                                         jnp.asarray(pl), nb, npr,
-                                         n_chunks=5, narrow=True,
-                                         interpret=True)
-    assert int(s1[3]) == 0 and int(s2[3]) == 0
-    assert int(c1) == int(c2)
+                                 jnp.asarray(pl), nb, npr, narrow=True)
+    c2, _ = _chunked(kl.astype(np.uint64), pl.astype(np.uint64), 5)
+    c3, _, keys, _ = _chunked(kl.astype(np.uint64), pl.astype(np.uint64),
+                              5, mode="materialize")
+    assert int(s1[3]) == 0
+    assert int(c1) == c2 == c3
+    # chunks concatenate in probe order
+    assert np.array_equal(keys, pl[np.isin(pl, kl)].astype(np.uint64))
 
 
 def test_host_chunked_api_exact(monkeypatch):
@@ -159,7 +157,7 @@ def test_host_chunked_serial_mode_matches(monkeypatch):
 
 def test_chunked_oom_doubles_and_retries(monkeypatch):
     """A planned-feasible chunk that still ResourceExhausts must double the
-    chunk count and retry, not propagate (VERDICT r3 item 7)."""
+    chunk count and retry, not propagate."""
     import flash_hash_join_tpu as fj
     from flash_hash_join_tpu.engine import JoinEngine
     from flash_hash_join_tpu.models.cost import JoinPlan
@@ -223,9 +221,10 @@ def test_single_shot_oom_falls_back_to_chunks(monkeypatch):
     monkeypatch.setattr(JoinEngine, "prepare", fake_prepare)
     rng = np.random.default_rng(29)
     nb, npr = 1_000, 10_000  # plans single-shot at this size
-    bk = rng.integers(0, 2_000, nb, dtype=np.uint64)
+    # sparse keys (span ~2^31): the partitioned tier, not the dense domain
+    bk = rng.integers(0, 2_000, nb, dtype=np.uint64) << np.uint64(20)
     bv = rng.integers(0, 2**63, nb, dtype=np.uint64)
-    pk = rng.integers(0, 2_000, npr, dtype=np.uint64)
+    pk = rng.integers(0, 2_000, npr, dtype=np.uint64) << np.uint64(20)
     expected = int(np.isin(pk, np.unique(bk)).sum())
 
     count, _ = fj.adaptive_join_count(bk, bv, pk)
@@ -238,9 +237,10 @@ def test_plan_budgets_depth2_pipeline():
     once chunking triggers, chunks are sized for per_row + 8 bytes."""
     nb, npr = 10_000_000, 1_000_000_000
     n = plan_probe_chunks(nb, npr, "count")
-    fixed = 16 * nb + 16 * nb
-    avail = HBM_BUDGET_BYTES - fixed
-    chunk_rows = avail // (8 + 40 + 8)  # per_row + pipelined input planes
+    fixed = cost.FIXED_BYTES_PER_BUILD_ROW * nb
+    avail = CPU_TEST_BUDGET_BYTES - fixed
+    # per_row + pipelined input planes
+    chunk_rows = avail // (8 + cost.TRANSIENT_BYTES_COUNT + 8)
     assert n == -(-npr // chunk_rows)
 
 
@@ -282,7 +282,7 @@ def test_rechunked_padded_tail_not_counted(monkeypatch):
 
 
 def test_explicit_strategies_bypass_partitioned_plan(monkeypatch):
-    """merge/global/vmem requests must not consult (or trip) the
+    """merge/global requests must not consult (or trip) the
     partitioned feasibility plan."""
     import flash_hash_join_tpu as fj
     from flash_hash_join_tpu.engine import JoinEngine
@@ -303,7 +303,7 @@ def test_explicit_strategies_bypass_partitioned_plan(monkeypatch):
 
 
 def test_chunked_dense_key_count_routes_direct(monkeypatch):
-    """Round-5 gate lift (VERDICT r4 item 4): a chunked probe stream over
+    """A chunked probe stream over
     a dense build domain routes each chunk through the direct bitmap
     strategy — counts stay exact and info reports the direct route."""
     import flash_hash_join_tpu.api as api
@@ -357,3 +357,44 @@ def test_chunked_materialize_keeps_sort_route(monkeypatch):
                                    return_info=True)
     assert count == expected
     assert info["strategy"] != "direct"
+
+
+class _Dev:
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("platform,stats,want", [
+    ("gpu", {"bytes_limit": 60 * 2**30, "peak_bytes_in_use": 1},
+     int(60 * 2**30 * (1 - cost.HEADROOM_FRACTION))),
+    ("cpu", None, CPU_TEST_BUDGET_BYTES),
+    ("cpu", {}, CPU_TEST_BUDGET_BYTES),
+])
+def test_budget_from_memory_stats(monkeypatch, platform, stats, want):
+    """The budget is the device's bytes_limit less the headroom; only the
+    CPU backend, which reports no statistics, falls back to a constant."""
+    import jax
+    monkeypatch.setattr(jax, "devices", lambda: [_Dev(platform, stats)])
+    assert cost.device_budget_bytes() == want
+
+
+def test_budget_without_stats_fails_on_a_device(monkeypatch):
+    import jax
+    monkeypatch.setattr(jax, "devices", lambda: [_Dev("gpu", {})])
+    with pytest.raises(RuntimeError):
+        cost.device_budget_bytes()
+
+
+def test_plan_uses_device_budget(monkeypatch):
+    """plan_probe_chunks without an explicit budget reads the device."""
+    import jax
+    small = {"bytes_limit": 2**30}
+    monkeypatch.setattr(jax, "devices", lambda: [_Dev("gpu", small)])
+    assert plan_probe_chunks(1_000_000, 100_000_000, "count") == \
+        plan_probe_chunks(1_000_000, 100_000_000, "count",
+                          budget_bytes=int(2**30 * 0.8))
+    assert plan_probe_chunks(1_000_000, 100_000_000, "count") > 1

@@ -2,8 +2,8 @@
 
 The dense-domain count tier: parity vs the numpy oracle across domain
 offsets, duplicates, misses, wide (>=2^32) probe keys, and validity
-tails; the out-of-domain special-channel fallback; and the adaptive
-upgrade/eligibility rules api.py applies.
+tails; the out-of-domain special-channel fallback; and the dense-domain
+rule api.py applies.
 """
 
 import numpy as np
@@ -59,7 +59,8 @@ def test_direct_rejects_wide_or_sparse():
     wide = rng.integers(2**32, 2**40, 100).astype(np.uint64)
     with pytest.raises(ValueError):
         fj.join_count(wide, bv, pk, strategy="direct")
-    sparse = rng.integers(0, 2**28, 100).astype(np.uint64)  # span > 2^20
+    sparse = rng.integers(0, 2**32, 100).astype(np.uint64)  # span > 2^30
+    sparse[0], sparse[1] = 0, 2**32 - 1
     with pytest.raises(ValueError):
         fj.join_count(sparse, bv, sparse, strategy="direct")
 
@@ -71,11 +72,11 @@ def test_adaptive_upgrades_dense_count_only():
                                strategy="adaptive", use_bloom=False,
                                return_info=True)
     assert info["strategy"] == "direct" and info["d_rows"] > 0
-    # materialize must NOT take the bitmap path (membership has no values)
+    # materialize takes the direct row plane too
     _, _, info = api._run_join(bk, bv, pk, mode="materialize",
                                strategy="adaptive", use_bloom=False,
                                return_info=True)
-    assert info["strategy"] != "direct"
+    assert info["strategy"] == "direct"
     # sparse 64-bit keys: adaptive silently keeps the regular plan
     wide = rng.integers(0, 2**62, 40_000).astype(np.uint64)
     wpk = rng.integers(0, 2**62, 1 << 17).astype(np.uint64)
@@ -85,69 +86,33 @@ def test_adaptive_upgrades_dense_count_only():
     assert info["strategy"] != "direct"
 
 
-def test_adaptive_gates_by_measured_crossover(monkeypatch):
-    # Adaptive routes direct inside the measured win regions: the SCAN
-    # band (span <= ADAPTIVE_SCAN_DOMAIN_BITS = 2^19) and the LARGE
-    # dense_bitmap band (span in (2^20, 2^26] passing BOTH the
-    # large_span_ok density gate and the large_span_wins perf gate —
-    # round-4 2D crossover sweep, profile_crossover.py).  The hole
-    # (2^19, 2^20] stays partitioned: the 256-row scan rung measured
-    # slower there.  Sparse large spans (failing large_span_ok) must
-    # also stay partitioned.  The perf gate is forced open here so the
-    # structural gates are what this test exercises at CPU-sized probe
-    # counts; the gate itself is unit-tested below.
-    from flash_hash_join_tpu.ops import direct_bitmap as db
-    monkeypatch.setattr(db, "large_span_wins", lambda nb, npr: True)
+def test_adaptive_gates_by_measured_crossover():
+    # Adaptive routes direct exactly when the dense-domain rule holds:
+    # span <= DENSE_SLOTS_PER_ROW slots per input row (build + probe).
     rng = np.random.default_rng(6)
-    nb = 1 << 16
-    span = (1 << 20) + 4096
-    bk = rng.integers(0, span, nb).astype(np.uint64)
+    nb = npr = 1 << 14
+    cap = db.DENSE_SLOTS_PER_ROW * (nb + npr)
     bv = rng.integers(1, 101, nb).astype(np.uint64)
-    pk = rng.integers(0, int(span * 1.1), 1 << 16).astype(np.uint64)
-    count, _, info = api._run_join(bk, bv, pk, mode="count",
-                                   strategy="adaptive", use_bloom=False,
-                                   return_info=True)
-    assert info["strategy"] == "direct"  # dense large span: routed
-    assert info["d_rows"] > 256
-    assert count == oracle_count(bk, pk)
-    # scan-band hole (2^19, 2^20]: stays partitioned
-    bk_h = rng.integers(0, (1 << 19) + 4096, nb).astype(np.uint64)
-    _, _, info = api._run_join(bk_h, bv, pk, mode="count",
-                               strategy="adaptive", use_bloom=False,
-                               return_info=True)
-    assert info["strategy"] != "direct"
-    # sparse large span (fails the density gate): stays partitioned
-    bk_s = (rng.integers(0, 1 << 12, nb).astype(np.uint64)
-            << np.uint64(13))  # span ~2^25, only 2^12 distinct clusters
-    _, _, info = api._run_join(bk_s, bv, pk, mode="count",
-                               strategy="adaptive", use_bloom=False,
-                               return_info=True)
-    assert info["strategy"] != "direct"
-    # in-region span (2^18 <= 2^19): adaptive upgrades
-    bk2 = rng.integers(0, 1 << 18, 40_000).astype(np.uint64)
-    bv2 = rng.integers(1, 101, 40_000).astype(np.uint64)
-    pk2 = rng.integers(0, 1 << 18, 1 << 17).astype(np.uint64)
-    count2, _, info = api._run_join(bk2, bv2, pk2, mode="count",
-                                    strategy="adaptive", use_bloom=False,
-                                    return_info=True)
-    assert info["strategy"] == "direct"
-    assert count2 == oracle_count(bk2, pk2)
+    pk = rng.integers(0, cap, npr).astype(np.uint64)
+    for span, routed in ((cap, True), (cap + 1, False)):
+        bk = rng.integers(0, span, nb).astype(np.uint64)
+        bk[:2] = (0, span - 1)  # pin the span
+        count, _, info = api._run_join(bk, bv, pk, mode="count",
+                                       strategy="adaptive", use_bloom=False,
+                                       return_info=True)
+        assert (info["strategy"] == "direct") == routed, span
+        assert count == oracle_count(bk, pk)
 
 
-def test_large_span_wins_pins_measured_crossover():
-    # Pin the measured v5e win/lose points (profile_crossover.py round 4;
-    # constants in ops/direct_bitmap.py).  Losing points at <= 2e7 probes
-    # must stay partitioned; the 4e7-probe row must route direct.
-    from flash_hash_join_tpu.ops import direct_bitmap as db
-    for nb in (2_500_000, 10_000_000):
-        assert not db.large_span_wins(nb, 10_000_000)
-        assert not db.large_span_wins(nb, 20_000_000)
-        assert db.large_span_wins(nb, 40_000_000)
-    assert not db.large_span_wins(20_000_000, 20_000_000)
-    assert db.large_span_wins(40_000_000, 40_000_000)   # flagship
-    assert db.large_span_wins(100_000_000, 100_000_000)  # 1e8 J1 Q5
-    # no measured win for build >> probe: stays partitioned
-    assert not db.large_span_wins(60_000_000, 40_000_000)
+def test_dense_domain_rule_boundaries():
+    # the rule's boundaries: J1 Q1/Q2/Q5 spans (1.1x the build) route
+    # direct at every scale; a sparse span or one past the cap does not
+    for n in (10**7, 10**8):
+        for nb in (n // 10**6, n // 1000, n):
+            assert db.dense_domain_ok(int(nb * 1.1) + 1, nb, n)
+    assert not db.dense_domain_ok(2**31, 10**6, 10**6)
+    assert not db.dense_domain_ok(db.MAX_DOMAIN_SLOTS + 1, 10**9, 10**9)
+    assert db.dense_domain_ok(db.MAX_DOMAIN_SLOTS, 10**9, 10**9)
 
 
 def test_out_of_domain_special_channel():
@@ -160,7 +125,7 @@ def test_out_of_domain_special_channel():
     ph, pl = u64.split_u64(pk)
     count, special = db.direct_join_count(
         kh, kl, ph, pl, np.int32(len(bk)), np.int32(len(pk)),
-        d_rows=8, interpret=True)
+        d_rows=8)
     assert int(special[3]) > 0
 
 
@@ -172,7 +137,7 @@ def test_direct_validity_tail():
     valid = 7_333
     count, special = db.direct_join_count(
         kh, kl, ph, pl, np.int32(len(bk)), np.int32(valid),
-        d_rows=db.d_rows_for(1_100), interpret=True)
+        d_rows=db.d_rows_for(1_100))
     assert int(special[3]) == 0
     assert int(count) == oracle_count(bk, pk[:valid])
 
@@ -183,3 +148,4 @@ def test_d_rows_rungs():
     assert db.d_rows_for(8 * 4096 + 1) == 16
     assert db.d_rows_for(44_000) == 16
     assert db.d_rows_for(1 << 20) == 256
+    assert db.d_rows_for((1 << 20) + 1) == 512

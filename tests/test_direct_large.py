@@ -1,9 +1,9 @@
-"""Large-span dense-domain bitmap count (ops/pallas/dense_bitmap.py).
+"""Large-span dense-domain bitmap count (ops/direct_bitmap.py).
 
-Interpret-mode parity vs numpy membership counting, plus the exactness
-escape hatches (bad build rows, unresolved window overflow under local
-key-space gaps).  Reference cells this strategy replaces: the radix and
-scalar count drivers, /root/reference/hash_join.cpp:498-534, :536-567.
+Parity vs numpy membership counting at spans past one bitmap row rung,
+plus the exactness escape hatch (bad build rows) and key-space gaps.
+Reference cells this strategy replaces: the radix and scalar count
+drivers, hash_join.cpp:498-534, :536-567.
 """
 
 import numpy as np
@@ -20,9 +20,9 @@ def _run_large(bk, pk, nb_valid=None, np_valid=None, d_rows=None, **kw):
     nb = np.int32(len(bk) if nb_valid is None else nb_valid)
     npv = np.int32(len(pk) if np_valid is None else np_valid)
     span = int(bk.max() - bk.min() + 1) if len(bk) else 1
-    cnt, special = db.direct_join_count_large(
+    cnt, special = db.direct_join_count(
         jnp.asarray(kh), jnp.asarray(kl), jnp.asarray(ph), jnp.asarray(pl),
-        nb, npv, d_rows=d_rows or db.d_rows_for(span), interpret=True, **kw)
+        nb, npv, d_rows=d_rows or db.d_rows_for(span), **kw)
     return int(cnt), int(np.asarray(special)[3])
 
 
@@ -71,17 +71,19 @@ def test_bad_build_rows_flagged():
 
 
 def test_gap_overflow_unresolved():
-    # a key-space gap wider than the sels-row window makes the straddling
-    # tile-row unresolvable: special[3] must flag it (caller falls back)
+    # a key-space gap across most of the domain: direct addressing has no
+    # window, so nothing is unresolved and the count stays exact
     d_rows = 512
     d_bits = d_rows * 4096
     bk = np.concatenate([
         np.arange(1_000, dtype=np.uint64),
         np.arange(d_bits - 1_000, d_bits, dtype=np.uint64),
     ])
-    pk = np.arange(500, dtype=np.uint64)
+    pk = np.concatenate([np.arange(500, dtype=np.uint64),
+                         np.arange(d_bits - 700, d_bits, dtype=np.uint64)])
     cnt, sp3 = _run_large(bk, pk, d_rows=d_rows)
-    assert sp3 > 0
+    assert sp3 == 0
+    assert cnt == int(np.isin(pk, bk).sum())
 
 
 def test_empty_sides():
@@ -104,32 +106,22 @@ def test_fuzz_small_shapes():
         pk = rng.integers(lo, lo + int(span * 1.5) + 2, npr,
                           dtype=np.uint64)
         cnt, sp3 = _run_large(bk, pk)
-        if sp3 == 0:
-            assert cnt == int(np.isin(pk, bk).sum()), it
+        assert sp3 == 0, it
+        assert cnt == int(np.isin(pk, bk).sum()), it
 
 
 def test_xl_rung_math():
-    # Rungs stay pow2 through MAX_LARGE_D_ROWS, then step by XL_STEP_ROWS
-    # (pow2 doubling to 32768 rows = 16 MB would not fit VMEM).
-    assert db.d_rows_for(db.MAX_LARGE_DOMAIN_BITS) == db.MAX_LARGE_D_ROWS
-    assert db.d_rows_for(db.MAX_LARGE_DOMAIN_BITS + 1) == \
-        db.MAX_LARGE_D_ROWS + db.XL_STEP_ROWS
-    assert db.d_rows_for(110_000_000) == 28672      # the 1e8 J1 universe
-    assert db.d_rows_for(db.MAX_XL_DOMAIN_BITS) == db.MAX_XL_D_ROWS
-    for span in (1, 4096, 2**20, 2**25, 90_000_000):
+    # rungs are pow2 bitmap rows of 4096 slots, covering any span
+    assert db.d_rows_for(110_000_000) == 32768      # the 1e8 J1 universe
+    for span in (1, 4096, 2**20, 2**25, 90_000_000, db.MAX_DOMAIN_SLOTS):
         r = db.d_rows_for(span)
         assert r * 4096 >= span
-        assert r <= db.MAX_XL_D_ROWS
-        assert r % min(128, r) == 0                  # zero-strip divisor
+        assert r & (r - 1) == 0
+        assert r == 8 or (r // 2) * 4096 < span
 
 
-def test_xl_sort_block_and_density_gate():
-    # XL rungs double the sort block so J1-density 1e8 spans pass the gate
-    assert db.sort_block_for(16384) == 1 << 20
-    assert db.sort_block_for(20480) == db.XL_SORT_BLOCK
-    assert db.sort_block_for(28672, interpret=True) == 1 << 14
-    # the 1e8 J1 Q5 shape: span 1.1e8, nb = npr = 1e8 -> passes
-    assert db.large_span_ok(110_000_000, 100_000_000, 100_000_000)
-    # same span with a sub-block build side: per-block density too thin
-    # at sels=4 -> gate must reject (fallback rerun would eat the win)
-    assert not db.large_span_ok(110_000_000, 1_000_000, 100_000_000)
+def test_dense_domain_rule_j1_1e8():
+    # the 1e8 J1 Q5 shape: span 1.1e8, nb = npr = 1e8 -> dense
+    assert db.dense_domain_ok(110_000_000, 100_000_000, 100_000_000)
+    # the same span under a thin build and probe side is not
+    assert not db.dense_domain_ok(110_000_000, 1_000_000, 1_000_000)

@@ -1,10 +1,9 @@
 """Dense-domain MATERIALIZE (ops/direct_bitmap.direct_join_materialize).
 
-Interpret-mode parity vs the numpy oracle for both bands — scan
-(unsorted probes, ops/pallas/bitmap_probe.probe_gather_bitmap) and staged
-(blockwise-sorted probes, ops/pallas/dense_values.probe_gather_staged) —
-plus the exactness escape hatches.  Reference strategy being replaced:
-count-then-write at exact offsets, /root/reference/hash_join.cpp:394-444.
+Parity vs the numpy oracle for small (one row rung) and large spans —
+the row plane is a scatter-min of build rows, read by one gather per
+probe — plus the exactness escape hatch.  Reference strategy being
+replaced: count-then-write at exact offsets, hash_join.cpp:394-444.
 """
 
 import numpy as np
@@ -34,7 +33,7 @@ def _run_mat(bk, bv, pk, nb_valid=None, np_valid=None, v_rows=None,
         jnp.asarray(kh), jnp.asarray(kl), jnp.asarray(vh), jnp.asarray(vl),
         jnp.asarray(ph), jnp.asarray(pl), nb, npv,
         v_rows=v_rows or db.v_rows_for(span),
-        narrow_values=narrow_values, interpret=True, **kw)
+        narrow_values=narrow_values, **kw)
     count = int(out[0])
     keys = u64.join_u64(np.asarray(out[1]), np.asarray(out[2]))[:count]
     vals = u64.join_u64(np.asarray(out[3]), np.asarray(out[4]))[:count]
@@ -75,7 +74,6 @@ def test_scan_band_parity(nb, npr, span, lo, wide_vals):
     pk = rng.integers(lo, lo + int(span * 1.3) + 1, npr, dtype=np.uint64)
     count, keys, vals, sp3 = _run_mat(bk, bv, pk)
     assert sp3 == 0
-    assert db.v_rows_for(span) <= db.MAT_SCAN_MAX_V_ROWS
     _assert_parity(bk, bv, pk, count, keys, vals)
 
 
@@ -89,7 +87,7 @@ def test_staged_band_parity(nb, npr, span, wide_vals):
     bv = rng.integers(0, 2**40 if wide_vals else 2**20, nb,
                       dtype=np.uint64)
     pk = rng.integers(0, 5 + int(span * 1.2), npr, dtype=np.uint64)
-    assert db.v_rows_for(span) > db.MAT_SCAN_MAX_V_ROWS
+    assert db.v_rows_for(span) > 128
     count, keys, vals, sp3 = _run_mat(bk, bv, pk)
     assert sp3 == 0
     _assert_parity(bk, bv, pk, count, keys, vals)
@@ -146,8 +144,8 @@ def test_probe_hi_keys_never_match():
 
 
 def test_staged_gap_overflow_unresolved():
-    # keys clustered at both ends of a 2^19-slot span: tile rows straddling
-    # the gap cannot resolve within the sels window -> special[3] flags it
+    # keys clustered at both ends of a 2^19-slot span: direct addressing
+    # has no window, so the rows stay exact with nothing unresolved
     span = 1 << 19
     bk = np.concatenate([np.arange(500, dtype=np.uint64),
                          np.arange(span - 500, span, dtype=np.uint64)])
@@ -156,7 +154,8 @@ def test_staged_gap_overflow_unresolved():
                          np.arange(span - 400, span, dtype=np.uint64)])
     pk = np.tile(pk, 40)                                   # 32K probes
     count, keys, vals, sp3 = _run_mat(bk, bv, pk)
-    assert sp3 > 0
+    assert sp3 == 0
+    _assert_parity(bk, bv, pk, count, keys, vals)
 
 
 def test_empty_and_all_miss():
@@ -169,7 +168,7 @@ def test_empty_and_all_miss():
 
 def test_api_adaptive_routes_dense_materialize():
     rng = np.random.default_rng(5)
-    nb, npr = 900, 1_100_000          # v_rows=8 band, past its 1e6 gate
+    nb, npr = 900, 1_100_000          # v_rows=8
     bk = rng.permutation(nb).astype(np.uint64) + 1
     bv = rng.integers(1, nb, nb).astype(np.uint64)
     pk = rng.integers(1, int(nb * 1.1) + 1, npr).astype(np.uint64)
@@ -207,11 +206,12 @@ def test_v_rows_rung_math_and_gates():
     assert db.v_rows_for(1) == 8
     assert db.v_rows_for(128 * 128) == 128
     assert db.v_rows_for(128 * 128 + 1) == 256
-    assert db.v_rows_for(1 << 20) == db.MAT_MAX_V_ROWS
-    for span in (1, 44, 11_000, 44_000, 1 << 20):
+    assert db.v_rows_for(1 << 20) == 8192
+    for span in (1, 44, 11_000, 44_000, 1 << 20, 110_000_000):
         r = db.v_rows_for(span)
         assert r * 128 >= span
-        assert r <= db.MAT_MAX_V_ROWS
-    # density gate: Q2-4e7 passes, a thin probe side over a wide span fails
-    assert db.mat_span_ok(44_000, 40_000_000)
-    assert not db.mat_span_ok(1 << 20, 300_000)
+        assert r == 8 or (r // 2) * 128 < span
+    # the dense-domain rule: Q2-4e7 passes, a thin side over a wide span
+    # fails
+    assert db.dense_domain_ok(44_000, 40_000, 40_000_000)
+    assert not db.dense_domain_ok(1 << 22, 1_000, 300_000)

@@ -93,7 +93,8 @@ def test_merge_validity_padding():
 
 
 def test_cost_model_picks_partitioned_everywhere():
-    # measured: the range table wins every regime (docs/RESULTS.md)
+    # the plan always names the partitioned tier; api.py upgrades dense
+    # domains to direct from the data
     for nb, npr in ((10_000_000, 10_000_000), (100_000, 100_000_000),
                     (1_000, 200_000), (30_000, 200_000)):
         assert choose_plan(nb, npr, DEFAULT_CONFIG).strategy == "partitioned"

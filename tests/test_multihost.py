@@ -1,7 +1,8 @@
 """Multi-process (2 hosts x 4 virtual CPU devices) execution of the
 distributed tier: exercises `parallel/multihost.py` (initialize_multihost,
 host-major pod_mesh, process_local_rows) across a REAL process boundary —
-the code paths a TPU pod slice hits first.  NOT PRESENT in the reference
+the code paths a multi-host cluster hits first.  The workers run on the
+CPU backend only.  NOT PRESENT in the reference
 (single node); demanded by the north-star scaling tier (SURVEY.md §5)."""
 
 import os

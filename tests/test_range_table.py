@@ -1,10 +1,9 @@
-"""Range table + windowed Pallas probe (interpret mode on CPU).
+"""Range table + per-probe binary search (ops/range_table.py).
 
-The partitioned ("radix") strategy's engine: hash-sorted build reshaped
-into rank-balanced lane-columns, hash-sorted probes resolved by a windowed
-binary-search-plus-scan kernel (ops/range_table.py, ops/pallas/range_probe).
-Oracle parity across adversarial distributions plus the unresolved-probe
-fallback protocol.
+The partitioned ("radix") strategy's engine: the build side sorted by
+(key, row) is the table, and each probe resolves by a lower-bound search.
+Oracle parity across adversarial distributions, the max-key side channel,
+and the Pallas Triton search kernel (interpret mode) against the plain one.
 """
 
 import collections
@@ -32,14 +31,14 @@ def _args(bk, bv, pk, nb=None, npr=None):
 
 
 def _count(bk, bv, pk, allow_unresolved=False, **kw):
-    c, special = rt.range_join_count(*_args(bk, bv, pk), interpret=True, **kw)
+    c, special = rt.range_join_count(*_args(bk, bv, pk), **kw)
     if not allow_unresolved:
         assert int(special[3]) == 0
     return int(c), int(special[3])
 
 
 def _materialize(bk, bv, pk, **kw):
-    out = rt.range_join_materialize(*_args(bk, bv, pk), interpret=True, **kw)
+    out = rt.range_join_materialize(*_args(bk, bv, pk), **kw)
     count = int(out[0])
     keys = u64.join_u64(np.asarray(out[1]), np.asarray(out[2]))[:count]
     vals = u64.join_u64(np.asarray(out[3]), np.asarray(out[4]))[:count]
@@ -92,26 +91,24 @@ def test_range_count_zipf_skew():
     bk = zipf
     bv = bk * np.uint64(3)
     pk = np.minimum(rng.zipf(1.3, 90_000), 2**40).astype(np.uint64)
-    c, unres = _count(bk, bv, pk, allow_unresolved=True)
-    if unres == 0:
-        assert c == oracle_count(bk, pk)
+    c, unres = _count(bk, bv, pk)
+    assert unres == 0
+    assert c == oracle_count(bk, pk)
 
 
 def test_range_unresolved_triggers_on_giant_dup_run():
-    """Millions of copies of one build key inflate ranks past any window;
-    the kernel must REPORT unresolved probes (engine then falls back) —
-    never silently undercount."""
+    """A giant run of one build key: the binary search has no window to
+    overflow, so every probe resolves (unresolved == 0) and the count is
+    exact."""
     nb = 120_000
     bk = np.full(nb, 42, np.uint64)
     bk[: 2000] = np.arange(2000, dtype=np.uint64) + 100
     bv = np.arange(nb, dtype=np.uint64)
     rng = np.random.default_rng(3)
     pk = rng.integers(0, 4000, 50_000, dtype=np.uint64)
-    c, unres = _count(bk, bv, pk, allow_unresolved=True)
-    if unres == 0:
-        assert c == oracle_count(bk, pk)
-    else:
-        assert unres > 0  # exactness protocol: caller must rerun
+    c, unres = _count(bk, bv, pk)
+    assert unres == 0
+    assert c == oracle_count(bk, pk)
 
 
 def test_range_count_padding_and_nvalid():
@@ -120,7 +117,7 @@ def test_range_count_padding_and_nvalid():
     bv = rng.integers(0, 2**63, 3000, dtype=np.uint64)
     pk = rng.integers(0, 500, 10_000, dtype=np.uint64)
     args = _args(bk, bv, pk, nb=2000, npr=7000)
-    c, special = rt.range_join_count(*args, interpret=True)
+    c, special = rt.range_join_count(*args)
     assert int(special[3]) == 0
     assert int(c) == oracle_count(bk[:2000], pk[:7000])
 
@@ -174,17 +171,6 @@ def test_range_tiny_build_and_probe():
         (5, 50), (9, 90), (9, 90)]
 
 
-def test_plan_window_bounds():
-    assert rt.plan_window(10, 10) >= 1
-    assert rt.plan_window(40_000_000, 40_000_000) >= 2
-    # huge build / small probe stays capped
-    assert rt.plan_window(100_000_000, 1_000) <= 64
-    # window never exceeds the table's super-row count
-    C = 32
-    S = max(1, -(-1000 // (128 * C)))
-    assert rt.plan_window(1000, 10_000_000) <= S
-
-
 # ---- narrow (32-bit key) variant ----------------------------------------
 
 def test_range_narrow_count_and_values():
@@ -227,10 +213,12 @@ def test_api_narrow_detection_routes_and_matches():
     assert c2 == oracle_count(bk64, pk64)
 
 
-# ---- small mode (window == whole table, probes unsorted) ------------------
+# ---- table shapes ---------------------------------------------------------
 
 @pytest.mark.parametrize("narrow", [False, True])
 def test_range_small_mode_exact(narrow):
+    """Small builds with a max-key sentinel and duplicates, count and
+    materialize, both key widths."""
     rng = np.random.default_rng(20)
     nb, npr = 9000, 40000
     bk = rng.integers(0, 12000, nb, dtype=np.uint64)
@@ -238,7 +226,6 @@ def test_range_small_mode_exact(narrow):
     bv = rng.integers(0, 2**62, nb, dtype=np.uint64)
     pk = rng.integers(0, 15000, npr, dtype=np.uint64)
     pk[:4] = bk[5]
-    assert rt.small_mode(nb)
     c, unres = _count(bk, bv, pk, narrow=narrow)
     assert unres == 0
     assert c == oracle_count(bk, pk)
@@ -249,34 +236,32 @@ def test_range_small_mode_exact(narrow):
         first.setdefault(k, v)
     want = collections.Counter(k for k in pk.tolist() if k in first)
     assert collections.Counter(keys.tolist()) == want
+    # first-match winner: the first input occurrence of each key
+    assert all(first[k] == v for k, v in zip(keys.tolist(), vals.tolist()))
 
 
 def test_range_small_mode_always_exact_on_dups():
-    """Small mode has no window to overflow: even an all-duplicate build
-    resolves exactly with unresolved == 0 (no fallback needed)."""
+    """An all-duplicate build resolves exactly with unresolved == 0."""
     bk = np.full(10000, 7, np.uint64)
     bv = np.arange(10000, dtype=np.uint64)
     pk = np.array([7, 8, 7, 9] * 2500, dtype=np.uint64)
     c, unres = _count(bk, bv, pk)
     assert unres == 0
     assert c == 5000
+    c2, keys, vals, _ = _materialize(bk, bv, pk)
+    assert c2 == 5000 and set(vals.tolist()) == {0}
 
 
 def test_range_narrow_values_specialization():
-    """32-bit values keep the hi plane out of the sort/table/kernel; the
+    """32-bit values keep the hi plane out of the sort and the table; the
     engine detects it host-side (api) — exercised here at the op level."""
     rng = np.random.default_rng(21)
     nb, npr = 20_000, 50_000
     bk = rng.permutation(np.arange(nb, dtype=np.uint64))
     bv = rng.integers(0, 2**31, nb, dtype=np.uint64)
     pk = rng.integers(0, 2 * nb, npr, dtype=np.uint64)
-    args = _args(bk, bv, pk)
-    # w_mult=4: pk spans 2x bk's key range, so the matched-density window
-    # estimate undercovers in the un-hashed narrow order; the api ladder
-    # retries with exactly this widened window (covered by
-    # test_api_narrow_density_mismatch_ladder)
-    out = rt.range_join_materialize(*args, narrow=True, narrow_values=True,
-                                    w_mult=4, interpret=True)
+    out = rt.range_join_materialize(*_args(bk, bv, pk), narrow=True,
+                                    narrow_values=True)
     c = int(out[0])
     assert int(out[-1][3]) == 0
     assert c == oracle_count(bk, pk)
@@ -286,9 +271,9 @@ def test_range_narrow_values_specialization():
     assert all(lut[k] == v for k, v in zip(keys.tolist(), vals.tolist()))
 
 
-# ---- key-order (64-bit keys, no hash column) -----------------------------
-
 def test_range_keyorder_wide_exact():
+    """64-bit keys clustered in the high half: the lexicographic (hi, lo)
+    search stays exact."""
     rng = np.random.default_rng(22)
     nb, npr = 30_000, 90_000
     bk = rng.integers(2**40, 2**63, nb, dtype=np.uint64)
@@ -296,17 +281,16 @@ def test_range_keyorder_wide_exact():
     pk = np.concatenate([rng.choice(bk, npr // 2),
                          rng.integers(2**40, 2**63, npr // 2,
                                       dtype=np.uint64)])
-    c, sp = rt.range_join_count(*_args(bk, bv, pk), order="key",
-                                interpret=True)
+    c, sp = rt.range_join_count(*_args(bk, bv, pk))
     assert int(sp[3]) == 0
     assert int(c) == oracle_count(bk, pk)
 
 
 def test_api_order_retry_ladder_on_density_mismatch():
-    """Clustered 32-bit build keys + uniform probes overflow the narrow
-    (key-ordered) windows; the api must retry with the hash order and
-    stay exact."""
+    """Clustered 32-bit build keys + uniform probes: the narrow search has
+    no density assumption, so the api answers exactly on the first try."""
     import flash_hash_join_tpu as fj
+    from flash_hash_join_tpu import api
     rng = np.random.default_rng(23)
     nb, npr = 30_000, 90_000
     bk = rng.integers(50_000, 250_000, nb, dtype=np.uint64)  # dense cluster
@@ -316,134 +300,114 @@ def test_api_order_retry_ladder_on_density_mismatch():
                                       dtype=np.uint64)])
     c, _ = fj.join_count(bk, bv, pk, strategy="partitioned")
     assert c == oracle_count(bk, pk)
-
-
-def test_small_mode_tile_and_window_caps():
-    from flash_hash_join_tpu.ops import range_table as rt
-    from flash_hash_join_tpu.ops.pallas import range_probe as rp
-
-    # SMALL mode bumps the probe tile (per-tile overhead amortization)
-    assert rt.default_tile_m(True, rp.DEFAULT_TILE_M) == rt.SMALL_TILE_M
-    # explicit tile_m is respected
-    assert rt.default_tile_m(True, 64) == 64
-    assert rt.default_tile_m(False, rp.DEFAULT_TILE_M) == rp.DEFAULT_TILE_M
-    # plan_window never exceeds the structural kernel cap, and a widened
-    # retry (w_mult) must re-cap: probe much smaller than build maxes the
-    # span estimate
-    W = rt.plan_window(10_000_000, 4096, C=8)
-    assert W <= rt.MAX_W
-    assert min(W * 4, rt.MAX_W) <= rt.MAX_W
+    _, _, info = api._run_join(bk, bv, pk, mode="count",
+                               strategy="partitioned", use_bloom=False,
+                               return_info=True)
+    assert info["strategy"] == "partitioned" and info["narrow"]
 
 
 def test_blockwise_probe_mode_exact():
-    """Mid-size build + big probe side triggers BLOCKWISE probe prep
-    (full 64K blocks sorted blockwise, ragged tail unsorted with a
-    whole-table window).  Count and materialize must stay exact,
-    including max-key sentinels and duplicate build keys."""
-    import jax.numpy as jnp
-    from flash_hash_join_tpu.ops import range_table as rt
-
-    nb, npr = 30_000, 200_000  # npr = 3 full blocks + 3392-row tail
-    assert rt.blockwise_ok(nb, npr, rt.default_C(nb), 32)
+    """Mid-size build + big probe side, narrow keys and values: count and
+    materialize stay exact, including max-key sentinels and duplicate
+    build keys."""
+    nb, npr = 30_000, 200_000
     rng = np.random.default_rng(5)
     bk = rng.integers(0, 40_000, nb, dtype=np.uint32)
     bk[7] = 2**32 - 1              # max-key sentinel in the build
     bv = rng.integers(0, 2**31, nb, dtype=np.uint32)
     pk = rng.integers(0, 40_000, npr, dtype=np.uint32)
-    pk[123:150] = 2**32 - 1        # max-key probes in a full block
-    pk[-20:] = 2**32 - 1           # ... and in the ragged tail
+    pk[123:150] = 2**32 - 1        # max-key probes
+    pk[-20:] = 2**32 - 1
     expected = int(np.isin(pk, bk).sum())
 
     z = jnp.zeros((nb,), jnp.uint32)
     zp = jnp.zeros((npr,), jnp.uint32)
     count, special = rt.range_join_count(
         z, jnp.asarray(bk), z, jnp.asarray(bv), zp, jnp.asarray(pk),
-        nb, npr, narrow=True, interpret=True)
+        nb, npr, narrow=True)
     assert int(special[3]) == 0
     assert int(count) == expected
 
     out = rt.range_join_materialize(
         z, jnp.asarray(bk), z, jnp.asarray(bv), zp, jnp.asarray(pk),
-        nb, npr, narrow=True, narrow_values=True, interpret=True)
+        nb, npr, narrow=True, narrow_values=True)
     cnt = int(out[0])
     assert int(out[-1][3]) == 0
     assert cnt == expected
     keys = np.asarray(out[2])[:cnt]
     vals = np.asarray(out[4])[:cnt]
-    # key multiset parity
     mask = np.isin(pk, bk)
-    assert np.array_equal(np.sort(keys), np.sort(pk[mask].astype(np.uint32)))
-    # every (key, value) pair must exist in the build
-    lut = {}
+    # probe order, and each value is the key's first build occurrence
+    assert np.array_equal(keys, pk[mask])
+    first = {}
     for k, v in zip(bk.tolist(), bv.tolist()):
-        lut.setdefault(k, set()).add(v)
-    assert all(v in lut[k] for k, v in zip(keys.tolist(), vals.tolist()))
+        first.setdefault(k, v)
+    assert all(first[k] == v for k, v in zip(keys.tolist(), vals.tolist()))
 
 
 def test_blockwise_validity_tail():
-    """Validity boundaries under the blockwise band stay exact:
-    (a) boundary in the unsorted ragged tail — blockwise stays on;
-    (b) boundary MID-BLOCK — callers with validity tails (api host
-        chunking) pass full_valid=False, which disables blockwise and
-        keeps the natively-exact global sort."""
-    import jax.numpy as jnp
-    from flash_hash_join_tpu.ops import range_table as rt
-
+    """Validity boundaries (host-chunk tails) stay exact wherever they
+    fall, on both sides."""
     nb, npr = 20_000, 160_000
     rng = np.random.default_rng(6)
     bk = rng.integers(0, 25_000, nb, dtype=np.uint32)
     pk = rng.integers(0, 25_000, npr, dtype=np.uint32)
     z = jnp.zeros((nb,), jnp.uint32)
     zp = jnp.zeros((npr,), jnp.uint32)
-    for nvalid, full_valid in ((140_000, True),   # boundary in ragged tail
-                               (66_536, False)):  # boundary mid-block
-        expected = int(np.isin(pk[:nvalid], bk).sum())
+    for nbv, nvalid in ((nb, 140_000), (nb, 66_536), (12_345, npr)):
+        expected = int(np.isin(pk[:nvalid], bk[:nbv]).sum())
         count, special = rt.range_join_count(
-            z, jnp.asarray(bk), z, z, zp, jnp.asarray(pk), nb, nvalid,
-            narrow=True, full_valid=full_valid, interpret=True)
-        if int(special[3]):
-            # a large validity tail shrinks the effective probe density,
-            # inflating per-tile spans past the planned window — the op
-            # contract reports it unresolved and the api ladder widens
-            # (rung 2, w_mult=4); mirror that here
-            count, special = rt.range_join_count(
-                z, jnp.asarray(bk), z, z, zp, jnp.asarray(pk), nb, nvalid,
-                narrow=True, full_valid=full_valid, w_mult=4,
-                interpret=True)
-        assert int(special[3]) == 0, (nvalid, int(special[3]))
-        assert int(count) == expected, (nvalid,)
+            z, jnp.asarray(bk), z, z, zp, jnp.asarray(pk), nbv, nvalid,
+            narrow=True)
+        assert int(special[3]) == 0, (nbv, nvalid)
+        assert int(count) == expected, (nbv, nvalid)
 
 
-@pytest.mark.parametrize("nb,npr,seed", [
-    (700, 5000, 0),        # small mode
-    (20_000, 40_000, 1),   # mid-size
-    (5_000, 9_000, 2),
-])
-def test_range_bloom_tags_parity(nb, npr, seed, monkeypatch):
-    """FHJ_RANGE_BLOOM=1 (in-kernel tag plane + tile-consensus scan skip)
-    must be result-identical to the plain kernel — the bloom has no false
-    negatives, so skipped scans can never lose hits (VERDICT r3 item 6)."""
+# ---- the search itself: plain jnp vs the Pallas Triton kernel -------------
+
+def _search_case(nt, m, seed, wide):
     rng = np.random.default_rng(seed)
-    bk = rng.integers(0, int(nb * 20), nb, dtype=np.uint64)  # ~5% match
-    bv = rng.integers(0, 2**63, nb, dtype=np.uint64)
-    pk = rng.integers(0, int(nb * 20), npr, dtype=np.uint64)
-    c0, _ = _count(bk, bv, pk, allow_unresolved=True)
-    monkeypatch.setenv("FHJ_RANGE_BLOOM", "1")
-    c1, _ = _count(bk, bv, pk, allow_unresolved=True)
-    assert c0 == c1 == oracle_count(bk, pk)
+    hi = 2**64 - 1 if wide else 2**32 - 1
+    t = np.sort(rng.integers(0, hi, nt, dtype=np.uint64)) if nt > 3 else \
+        np.sort(rng.integers(0, 9, nt, dtype=np.uint64))
+    p = np.concatenate([rng.choice(t, m // 2) if nt else
+                        np.zeros(0, np.uint64),
+                        rng.integers(0, hi, m - (m // 2 if nt else 0),
+                                     dtype=np.uint64)])
+    ls = np.searchsorted(t, p)
+    want = np.where((ls < nt) & (t[np.minimum(ls, max(nt - 1, 0))] == p)
+                    if nt else False, ls, -1)
+
+    def planes(a):
+        h, lo = u64.split_u64(a)
+        return (jnp.asarray(h), jnp.asarray(lo)) if wide else \
+            (jnp.asarray(lo),)
+    return planes(t), planes(p), want
 
 
-def test_range_bloom_tags_materialize_and_sentinel(monkeypatch):
-    rng = np.random.default_rng(7)
-    nb, npr = 3_000, 12_000
-    bk = rng.integers(0, 60_000, nb, dtype=np.uint64)
-    bk[11] = np.uint64(2**64 - 1)  # max-key sentinel via special channel
-    bv = rng.integers(0, 2**63, nb, dtype=np.uint64)
-    pk = rng.integers(0, 60_000, npr, dtype=np.uint64)
-    pk[3:9] = np.uint64(2**64 - 1)
-    c0, k0, v0, u0 = _materialize(bk, bv, pk)
-    monkeypatch.setenv("FHJ_RANGE_BLOOM", "1")
-    c1, k1, v1, u1 = _materialize(bk, bv, pk)
-    assert (c0, u0) == (c1, u1)
-    assert collections.Counter(k0.tolist()) == collections.Counter(k1.tolist())
-    assert collections.Counter(v0.tolist()) == collections.Counter(v1.tolist())
+@pytest.mark.parametrize("nt,m,seed,wide", [
+    (1, 100, 0, True), (5, 3000, 1, False), (4096, 5000, 2, True),
+    (70_000, 9_000, 3, False), (0, 50, 4, True),
+])
+def test_search_matches_numpy(nt, m, seed, wide):
+    t, p, want = _search_case(nt, m, seed, wide)
+    np.testing.assert_array_equal(np.asarray(rt.search(t, p)), want)
+
+
+@pytest.mark.parametrize("nt,m,seed,wide", [
+    (1, 100, 0, True), (5, 3000, 1, False), (4096, 5000, 2, True),
+    (70_000, 9_000, 3, False), (0, 50, 4, True),
+])
+def test_triton_search_matches_plain(nt, m, seed, wide):
+    from flash_hash_join_tpu.ops.pallas import range_probe as rp
+    t, p, want = _search_case(nt, m, seed, wide)
+    got = np.asarray(rp.search(t, p, interpret=True))
+    np.testing.assert_array_equal(got, np.asarray(rt.search(t, p)))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_search_first_occurrence_of_duplicates():
+    t = (jnp.asarray(np.array([1, 3, 3, 3, 8, 8], np.uint32)),)
+    p = (jnp.asarray(np.array([3, 8, 0, 9, 1], np.uint32)),)
+    np.testing.assert_array_equal(np.asarray(rt.search(t, p)),
+                                  [1, 4, -1, -1, 0])

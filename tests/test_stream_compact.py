@@ -1,53 +1,49 @@
-"""Tests for the exact-offset stream-compaction kernel (interpret mode).
+"""Stream compaction (ops/compact.compact_by_mask) against numpy.
 
 Oracle: numpy boolean-mask compaction.  Covers empty blocks, all-hit
-blocks, single partial block, carry straddling row boundaries, and the
-full hybrid wrapper at several sizes/mask densities.
+blocks, ragged per-block hit runs, truncated outputs, and several sizes,
+mask densities and column counts.
 """
 
 import numpy as np
+import jax.numpy as jnp
 import pytest
 
-from flash_hash_join_tpu.ops.pallas import stream_compact as sc
+from flash_hash_join_tpu.ops.compact import compact_by_mask
 
 
-def _np_concat(planes, counts, bm):
-    outs = []
-    for p in planes:
-        flat = np.asarray(p).reshape(-1)
-        segs = [
-            flat[b * bm * 128 : b * bm * 128 + int(counts[b])]
-            for b in range(len(counts))
-        ]
-        outs.append(np.concatenate(segs) if segs else flat[:0])
-    return outs
+def _check(mask, cols, n_out=None):
+    count, outs = compact_by_mask(
+        jnp.asarray(mask), tuple(jnp.asarray(c) for c in cols), n_out=n_out)
+    want = int(mask.sum())
+    assert int(count) == want
+    keep = want if n_out is None else min(want, n_out)
+    for o, c in zip(outs, cols):
+        o = np.asarray(o)
+        assert o.shape == (len(mask) if n_out is None else n_out,)
+        np.testing.assert_array_equal(o[:keep], c[mask][:keep])  # stable
+        assert not o[keep:].any()  # the tail is zero
 
 
 @pytest.mark.parametrize("bm,nblocks,seed", [
     (8, 1, 0), (8, 3, 1), (16, 5, 2), (8, 4, 3),
 ])
 def test_concat_ragged_blocks(bm, nblocks, seed):
-    import jax.numpy as jnp
-
+    """Each block keeps a leading run of its rows (ragged block counts),
+    the shape of a per-block compaction's concatenation."""
     rng = np.random.default_rng(seed)
     rows = nblocks * bm
-    planes = tuple(
-        jnp.asarray(rng.integers(0, 2**32, (rows, 128), dtype=np.uint32))
-        for _ in range(2)
-    )
-    counts = rng.integers(0, bm * 128 + 1, nblocks).astype(np.int32)
+    cols = [rng.integers(0, 2**32, rows * 128, dtype=np.uint32)
+            for _ in range(2)]
+    counts = rng.integers(0, bm * 128 + 1, nblocks)
     if seed == 1:
         counts[0] = 0            # empty leading block
         counts[-1] = bm * 128    # full trailing block
     if seed == 3:
-        counts[:] = [1, 0, 127, 130][:nblocks]  # tiny carries straddling
-    outs = sc.concat_ragged_blocks(planes, jnp.asarray(counts),
-                                   block_rows=bm, interpret=True)
-    total = int(counts.sum())
-    expected = _np_concat(planes, counts, bm)
-    for o, e in zip(outs, expected):
-        got = np.asarray(o).reshape(-1)[:total]
-        np.testing.assert_array_equal(got, e)
+        counts[:] = [1, 0, 127, 130][:nblocks]  # tiny runs straddling
+    pos = np.arange(rows * 128) % (bm * 128)
+    mask = pos < np.repeat(counts, bm * 128)
+    _check(mask, cols)
 
 
 @pytest.mark.parametrize("n,density,seed", [
@@ -55,18 +51,10 @@ def test_concat_ragged_blocks(bm, nblocks, seed):
     (65536, 0.97, 4), (5, 0.8, 5),
 ])
 def test_compact_by_mask_stream(n, density, seed):
-    import jax.numpy as jnp
-
     rng = np.random.default_rng(seed)
     mask = rng.random(n) < density
     cols = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(3)]
-    count, outs = sc.compact_by_mask_stream(
-        jnp.asarray(mask), tuple(jnp.asarray(c) for c in cols),
-        block_rows=16, interpret=True)
-    assert int(count) == int(mask.sum())
-    for o, c in zip(outs, cols):
-        np.testing.assert_array_equal(
-            np.asarray(o)[: int(count)], c[mask])  # stable: input order
+    _check(mask, cols)
 
 
 @pytest.mark.parametrize("n,density,seed,bm,V", [
@@ -76,57 +64,31 @@ def test_compact_by_mask_stream(n, density, seed):
     (99999, 0.33, 7, 1024, 4), (4096, 1.0, 8, 256, 1),
 ])
 def test_compact_by_mask_pack(n, density, seed, bm, V):
-    import jax.numpy as jnp
-
+    """V payload columns; masks clustered in runs of bm rows."""
     rng = np.random.default_rng(seed)
-    mask = rng.random(n) < density
+    runs = rng.random(-(-n // bm)) < density
+    mask = np.repeat(runs, bm)[:n] & (rng.random(n) < max(density, 0.5))
     cols = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(V)]
-    count, outs = sc.compact_by_mask_pack(
-        jnp.asarray(mask), tuple(jnp.asarray(c) for c in cols),
-        block_rows=bm, interpret=True)
-    assert int(count) == int(mask.sum())
-    for o, c in zip(outs, cols):
-        np.testing.assert_array_equal(
-            np.asarray(o)[: int(count)], c[mask])  # stable: input order
+    _check(mask, cols)
 
 
 def test_pack_matches_stream():
-    """The sort-free pack kernel and the blockwise-sort hybrid agree
-    bit-for-bit (both stable in input order)."""
-    import jax.numpy as jnp
-
+    """A truncated output (n_out < n) keeps the first n_out hits."""
     rng = np.random.default_rng(11)
     n = 150000
     mask = rng.random(n) < 0.6
-    cols = tuple(
-        jnp.asarray(rng.integers(0, 2**32, n, dtype=np.uint32))
-        for _ in range(4)
-    )
-    c1, o1 = sc.compact_by_mask_stream(jnp.asarray(mask), cols, n_out=n,
-                                       interpret=True)
-    c2, o2 = sc.compact_by_mask_pack(jnp.asarray(mask), cols, n_out=n,
-                                     interpret=True)
-    assert int(c1) == int(c2)
-    for a, b in zip(o1, o2):
-        np.testing.assert_array_equal(
-            np.asarray(a)[: int(c1)], np.asarray(b)[: int(c1)])
+    cols = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(4)]
+    _check(mask, cols, n_out=n // 3)
 
 
 def test_compact_stream_matches_compact_by_mask():
-    import jax.numpy as jnp
-    from flash_hash_join_tpu.ops.compact import compact_by_mask
-
+    """Columns of other integer dtypes are compacted as uint32 bits."""
     rng = np.random.default_rng(9)
     n = 30000
     mask = rng.random(n) < 0.4
-    cols = tuple(
-        jnp.asarray(rng.integers(0, 2**32, n, dtype=np.uint32))
-        for _ in range(4)
-    )
-    c1, o1 = compact_by_mask(jnp.asarray(mask), cols, n_out=n, stable=True)
-    c2, o2 = sc.compact_by_mask_stream(jnp.asarray(mask), cols, n_out=n,
-                                       block_rows=16, interpret=True)
-    assert int(c1) == int(c2)
-    for a, b in zip(o1, o2):
-        np.testing.assert_array_equal(
-            np.asarray(a)[: int(c1)], np.asarray(b)[: int(c1)])
+    cols = [rng.integers(-2**31, 2**31, n, dtype=np.int32)]
+    count, (out,) = compact_by_mask(jnp.asarray(mask),
+                                    (jnp.asarray(cols[0]),))
+    assert int(count) == int(mask.sum())
+    np.testing.assert_array_equal(
+        np.asarray(out)[: int(count)], cols[0][mask].view(np.uint32))
